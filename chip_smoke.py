@@ -1,0 +1,540 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each a hard check (any failure raises, and the script exits
+non-zero without the final result line):
+
+1. device: the card's name and power limit as nvidia-smi reports them;
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels: each of the four kernels of the two-phase round against its
+   plain PyTorch version on the same CUDA tensors at the main-path
+   shapes (a party chunk of l=1024, m=3, D=10,000, plus a ragged
+   D=10,001 with a non-zero counter offset): ``torch.equal`` on the bit
+   patterns, then median times from CUDA events beside the bound;
+4. rounds: the two-phase round at n=10,000 parties and s=10,000
+   elements, additive and Shamir, through ``make_transport`` on the
+   card, with counters against Eqs. 3-6, the mean bit for bit against
+   the same round through the plain versions on the card, and within
+   the fixed-point rounding of the float64 plain mean;
+5. streaming: chunked aggregation equals the whole vector, and the card
+   equals the port's CPU path, bit for bit;
+6. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+7. summary: a ``{"kernels": [...]}`` line, then the result line.
+
+Every phase prints one JSON object per line.  The script imports no JAX
+and nothing of the JAX package.  It needs one card and no network.
+
+``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
+one n=10,000 round per scheme after the checks: the device time by
+kernel name and the device's busy share of the round.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM device-memory rate (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: INT32 operations per second of an H100 SXM at its 700 W limit, derived
+#: from the data sheet's 67 TFLOP/s float32 (a fused multiply-add counts
+#: as two): 33.5e12 float32 lane operations/s, and a Hopper SM has 64
+#: INT32 lanes against 128 float32 lanes.
+INT32_OPS_PER_S = 67e12 / 2 / 2
+#: integer operations per Philox4x32-10 call (four words): ten rounds of
+#: two multiply-lows, two multiply-highs, four xors and two key adds
+PHILOX_OPS = 100
+#: integer operations of the field steps, as ``kernels/csrc/mersenne.cuh``
+#: spells them out: fmul, fadd and to_field
+FIELD_MUL_OPS = 12
+FIELD_ADD_OPS = 6
+TO_FIELD_OPS = 3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(bytes_moved: float, int_ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_device() -> str:
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    require(smi, "nvidia-smi printed no card")
+    print(smi[0], flush=True)
+    emit({"phase": "device", "nvidia_smi": smi[0],
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    return smi[0]
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import dispatch
+    t0 = time.perf_counter()
+    info = dispatch.load_library()
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if "entry function" in ln or "registers" in ln
+             or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": info["built"], "ptxas": ptxas})
+
+
+def _bits(t):
+    """32-bit patterns of a float32, int32 or int64-word tensor."""
+    import torch
+    from repro_torch.core.field import to_i32
+    if t.dtype in (torch.float32, torch.int32):
+        return t.view(torch.int32)
+    return to_i32(t)
+
+
+def _keys(seed: int, ids):
+    import torch
+    from repro_torch.core import philox
+    k0, k1 = philox.derive_key(seed, torch.as_tensor(ids, dtype=torch.int64))
+    return torch.stack([k0, k1], dim=1).cuda()
+
+
+def phase_kernels() -> dict:
+    """Kernels against their plain versions; returns timing rows."""
+    import torch
+    from repro_torch.core.field import MERSENNE_P, U32_MASK, to_i32
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.kernels.reconstruct import reconstruct, reconstruct_ref
+    from repro_torch.kernels.shamir import (shamir_reconstruct,
+                                            shamir_reconstruct_ref,
+                                            shamir_share_batch,
+                                            shamir_share_batch_ref)
+    from repro_torch.kernels.share_gen import (share_gen_batch,
+                                               share_gen_batch_ref)
+    ring = FixedPointConfig(frac_bits=10, clip=64.0, algebra="ring")
+    field = FixedPointConfig(frac_bits=10, clip=64.0, algebra="field")
+    l, m = 1024, 3
+    rows = {}
+    rng = np.random.RandomState(0)
+    for d, counter_base in ((10_000, 0), (10_001, 250)):
+        x_np = (rng.randn(l, d) * 0.1).astype(np.float32)
+        x_np[0, :5] = [np.nan, np.inf, -np.inf, 0.5 / 1024, 1.5 / 1024]
+        x = torch.from_numpy(x_np).cuda()
+        keys64 = _keys(1, np.arange(l))
+        keys = to_i32(keys64).contiguous()
+        timed = d == 10_000
+
+        def check(name, got, want, plain_fn, kernel_fn, nbytes, ops,
+                  reps=20):
+            same = torch.equal(_bits(got), _bits(want))
+            if got.dtype == torch.float32:
+                err = float((got - want).abs().max())
+            else:
+                err = float((got.to(torch.int64) & U32_MASK)
+                            .sub(want.to(torch.int64) & U32_MASK)
+                            .abs().max())
+            require(same, f"{name}: kernel differs from its plain version "
+                          f"at D={d} (max abs err {err})")
+            entry = {"phase": "kernel", "name": name, "d": d,
+                     "counter_base": counter_base, "equal": True,
+                     "max_abs_err": err}
+            if timed:
+                b_ms, b_by = bound(nbytes, ops)
+                entry.update(ms=cuda_ms(kernel_fn, reps),
+                             plain_ms=cuda_ms(plain_fn, 3),
+                             bound_ms=b_ms, bound_by=b_by)
+                rows[name] = entry
+            emit(entry)
+
+        quads = -(-d // 4)
+        # additive shares
+        sg = share_gen_batch(x, m, keys, ring, counter_base)
+        sg_ref = share_gen_batch_ref(x, m, keys64, ring, counter_base)
+        check("share_gen_batch", sg, to_i32(sg_ref),
+              lambda: share_gen_batch_ref(x, m, keys64, ring, counter_base),
+              lambda: share_gen_batch(x, m, keys, ring, counter_base),
+              4 * l * d + 8 * l + 4 * l * m * d,
+              l * quads * (m - 1) * PHILOX_OPS + l * d * (m - 1))
+        # Shamir shares, degree m - 1
+        deg = m - 1
+        ss = shamir_share_batch(x, m, keys, field, None, counter_base)
+        ss_ref = shamir_share_batch_ref(x, m, keys64, field, None,
+                                        counter_base)
+        check("shamir_share_batch", ss, to_i32(ss_ref),
+              lambda: shamir_share_batch_ref(x, m, keys64, field, None,
+                                             counter_base),
+              lambda: shamir_share_batch(x, m, keys, field, None,
+                                         counter_base),
+              4 * l * d + 8 * l + 4 * l * m * d,
+              # deg coefficients drawn once; Horner at x = 1..m is deg
+              # multiply-adds per point
+              l * quads * deg * PHILOX_OPS
+              + l * d * (deg * TO_FIELD_OPS
+                         + m * deg * (FIELD_MUL_OPS + FIELD_ADD_OPS)))
+        # member sums of the chunk, then the two reconstructions at n = 1
+        ring_sums = to_i32(sg.sum(0, dtype=torch.int64) & U32_MASK)
+        field_sums = to_i32(ss.sum(0, dtype=torch.int64) % MERSENNE_P)
+        check("reconstruct", reconstruct(ring_sums, 1, ring),
+              reconstruct_ref(ring_sums, 1, ring),
+              lambda: reconstruct_ref(ring_sums, 1, ring),
+              lambda: reconstruct(ring_sums, 1, ring),
+              4 * m * d + 4 * d, (m - 1) * d, reps=50)
+        check("shamir_reconstruct", shamir_reconstruct(field_sums, 1, field),
+              shamir_reconstruct_ref(field_sums, 1, field),
+              lambda: shamir_reconstruct_ref(field_sums, 1, field),
+              lambda: shamir_reconstruct(field_sums, 1, field),
+              4 * m * d + 4 * m + 4 * d,
+              d * (m * FIELD_MUL_OPS + (m - 1) * FIELD_ADD_OPS), reps=50)
+        # sub-threshold reconstruction from points (1, 3) of a degree-1
+        # polynomial
+        ss1 = shamir_share_batch(x, m, keys, field, 1, counter_base)
+        require(torch.equal(_bits(ss1), to_i32(shamir_share_batch_ref(
+            x, m, keys64, field, 1, counter_base))),
+            f"shamir_share_batch degree 1 differs at D={d}")
+        sub = to_i32(ss1[:, [0, 2]].sum(0, dtype=torch.int64) % MERSENNE_P)
+        require(torch.equal(
+            _bits(shamir_reconstruct(sub, 1, field, points=(1, 3))),
+            _bits(shamir_reconstruct_ref(sub, 1, field, points=(1, 3)))),
+            f"shamir_reconstruct at points (1, 3) differs at D={d}")
+        del sg, ss, ss1, sg_ref, ss_ref
+    torch.cuda.synchronize()
+    return rows
+
+
+def plain_round_mean(flats, scheme: str, fp, m: int, seed: int,
+                     chunk: int):
+    """A round-0 mean at full committee, recomputed on the card through
+    the plain share and reconstruct versions, party chunk by party chunk,
+    with a fold of its own: what the transport's chunk loop, key
+    derivation and fold must reproduce bit for bit."""
+    import torch
+    from repro_torch.core import philox
+    from repro_torch.core.field import MERSENNE_P, U32_MASK, fadd
+    from repro_torch.core.fixed_point import true_div
+    from repro_torch.kernels.reconstruct import reconstruct_ref
+    from repro_torch.kernels.shamir import (shamir_reconstruct_ref,
+                                            shamir_share_batch_ref)
+    from repro_torch.kernels.share_gen import share_gen_batch_ref
+    n = flats.shape[0]
+    # round 0: party p keys its stream with id p
+    k0, k1 = philox.derive_key(seed, torch.arange(n, device=flats.device))
+    keys = torch.stack([k0, k1], dim=1)
+    acc = None
+    for lo in range(0, n, chunk):
+        x, k = flats[lo:lo + chunk], keys[lo:lo + chunk]
+        if scheme == "additive":
+            part = share_gen_batch_ref(x, m, k, fp).sum(0) & U32_MASK
+            acc = part if acc is None else (acc + part) & U32_MASK
+        else:
+            part = shamir_share_batch_ref(x, m, k, fp).sum(0) % MERSENNE_P
+            acc = part if acc is None else fadd(acc, part)
+    out = (reconstruct_ref(acc, 1, fp) if scheme == "additive"
+           else shamir_reconstruct_ref(acc, 1, fp))
+    return true_div(out, n)
+
+
+def phase_rounds(flats, ref_mean) -> dict:
+    """The n=10,000 two-phase rounds; returns launches per kernel."""
+    import torch
+    from repro_torch.core import committee, costmodel
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import make_transport
+    from repro_torch.kernels import dispatch
+    n, s = flats.shape
+    m, chunk, seed = 3, 1024, 1
+    launches = {}
+    for scheme, algebra in (("additive", "ring"), ("shamir", "field")):
+        fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra=algebra)
+        tr = make_transport("two_phase", n, m=m, seed=seed, fp=fp,
+                            scheme=scheme, chunk=chunk, device="cuda")
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        com = tr.elect()
+        elect_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = tr.aggregate(flats)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        counts = dict(dispatch.launches)
+
+        p = costmodel.CostParams(n=n, e=1, s=s, m=m, b=tr.b)
+        rounds = committee.elect(n, m, tr.b, seed).rounds
+        st1 = tr.net.stats("phase1")
+        p2 = [tr.net.stats(ph) for ph in
+              ("phase2_upload", "phase2_exchange", "phase2_broadcast")]
+        require(st1.msg_num == rounds * costmodel.phase1_msg_num(p)
+                and st1.msg_size == rounds * costmodel.phase1_msg_size(p),
+                f"{scheme}: phase 1 counters {st1} differ from Eqs. 3-4")
+        require(sum(x.msg_num for x in p2) == costmodel.phase2_msg_num(p)
+                and sum(x.msg_size for x in p2)
+                == costmodel.phase2_msg_size(p),
+                f"{scheme}: phase 2 counters differ from Eqs. 5-6")
+        require(mean.shape == (s,) and bool(torch.isfinite(mean).all()),
+                f"{scheme}: mean is not finite of shape ({s},)")
+        plain = plain_round_mean(flats, scheme, fp, m, seed, chunk)
+        require(torch.equal(mean.view(torch.int32), plain.view(torch.int32)),
+                f"{scheme}: the round's mean differs from the same round "
+                "through the plain versions on the card")
+        del plain
+        # Each input is rounded to the nearest 1/scale, an error uniform
+        # in +-0.5/scale and independent across parties, so the mean's
+        # error per element has sigma (1/scale)/sqrt(12 n); the limit,
+        # 4 * 0.5/scale/sqrt(n), is 6.9 sigma (plus the float32 rounding
+        # of the mean), far inside half a quantum.
+        err = float((mean.double() - ref_mean).abs().max())
+        tol = (4 * 0.5 / fp.scale / math.sqrt(n)
+               + 2.0 ** -23 * float(ref_mean.abs().max()))
+        require(err <= tol, f"{scheme}: mean error {err} above {tol}")
+        share_k = ("repro_share_gen_batch" if scheme == "additive"
+                   else "repro_shamir_share_batch")
+        rec_k = ("repro_reconstruct" if scheme == "additive"
+                 else "repro_shamir_reconstruct")
+        require(counts[share_k] == -(-n // chunk) and counts[rec_k] == 1,
+                f"{scheme}: kernel launches {counts}")
+        launches[share_k] = counts[share_k]
+        launches[rec_k] = counts[rec_k]
+        emit({"phase": "round", "scheme": scheme, "n": n, "s": s, "m": m,
+              "chunk": chunk, "committee": list(com),
+              "election_rounds": rounds, "phase1_wall_s": elect_s,
+              "phase2_wall_s": round_s, "mean_max_err": err,
+              "mean_tol": tol, "equal_to_plain_round": True,
+              "launches": counts,
+              "phase1_msg_num": st1.msg_num,
+              "phase2_msg_num": sum(x.msg_num for x in p2),
+              "phase2_msg_size": sum(x.msg_size for x in p2)})
+        del mean
+    return launches
+
+
+def phase_profile(flats) -> None:
+    """Device time by kernel over one n=10,000 round per scheme."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import make_transport
+    for scheme, algebra in (("additive", "ring"), ("shamir", "field")):
+        fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra=algebra)
+        tr = make_transport("two_phase", flats.shape[0], m=3, seed=1, fp=fp,
+                            scheme=scheme, chunk=1024, device="cuda")
+        tr.elect()
+        tr.aggregate(flats, round_index=0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.aggregate(flats, round_index=1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernel rows only: an aten op's row repeats the time of the
+        # kernels it launched, so summing every row would count it twice
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        require(rows, f"{scheme}: the trace shows no kernel on the card")
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        emit({"phase": "profile", "scheme": scheme, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / wall_ms,
+              "top": [{"kernel": k[:90], "ms": t, "calls": c}
+                      for k, t, c in rows[:10]]})
+
+
+def phase_streaming() -> None:
+    import torch
+    from repro_torch.fl import make_transport
+    n, s = 64, 10_000
+    flats = (np.random.RandomState(2).randn(n, s) * 0.5).astype(np.float32)
+    for scheme, degree, drop in (("additive", None, ()), ("shamir", 1, 1)):
+        means = {}
+        for name, device, chunk_elems in (("whole", "cuda", None),
+                                          ("stream", "cuda", 2048),
+                                          ("cpu", "cpu", None)):
+            tr = make_transport("two_phase", n, m=3, seed=3, scheme=scheme,
+                                shamir_degree=degree, device=device,
+                                chunk_elems=chunk_elems)
+            tr.elect()
+            dropout = [tr.committee[drop]] if drop else ()
+            means[name] = tr.aggregate(torch.from_numpy(flats),
+                                       committee_dropout=dropout).cpu()
+        for name in ("stream", "cpu"):
+            require(torch.equal(means[name].view(torch.int32),
+                                means["whole"].view(torch.int32)),
+                    f"{scheme}: {name} mean differs from the whole-vector "
+                    "mean on the card")
+        emit({"phase": "streaming", "scheme": scheme, "n": n, "s": s,
+              "chunk_elems": 2048, "committee_dropout": bool(drop),
+              "bit_identical": True})
+
+
+def phase_fedavg() -> None:
+    import torch
+    from repro_torch.core import committee, costmodel
+    from repro_torch.data import fault_detection_party
+    from repro_torch.fl import FedAvgConfig, run_fedavg
+    from repro_torch.models import simple_nn
+    n_parties, epochs, seed = 8, 5, 0
+    data = [fault_detection_party(600, seed=seed, party=p)
+            for p in range(n_parties + 1)]
+    x_test, y_test = data[n_parties]
+
+    def batches(i, e, it):
+        x, y = data[i]
+        idx = np.random.RandomState(e * 31 + it).choice(len(x), 64)
+        return x[idx], y[idx]
+
+    model = simple_nn.SimpleNN(seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    res = run_fedavg(FedAvgConfig(n_parties=n_parties, epochs=epochs,
+                                  seed=seed), model,
+                     simple_nn.sgd_step(model, 0.1), batches, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        logits = torch.func.functional_call(
+            model, res.params, (torch.from_numpy(x_test).cuda(),))
+    pred = logits.argmax(-1).cpu().numpy()
+    tp = int(((pred == 1) & (y_test == 1)).sum())
+    tn = int(((pred == 0) & (y_test == 0)).sum())
+    recall = tp / max(int((y_test == 1).sum()), 1)
+    spec = tn / max(int((y_test == 0).sum()), 1)
+    balanced = 0.5 * (recall + spec)
+    p = costmodel.CostParams(n=n_parties, e=epochs, s=242, m=3, b=10)
+    rounds = committee.elect(n_parties, 3, 10, seed).rounds
+    require(res.phases["phase1"][0] == rounds * costmodel.phase1_msg_num(p),
+            f"fedavg phase 1 counters {res.phases}")
+    p2 = sum(res.phases[k][0] for k in
+             ("phase2_upload", "phase2_exchange", "phase2_broadcast"))
+    require(p2 == costmodel.phase2_msg_num(p),
+            f"fedavg phase 2 counters {res.phases}")
+    require(all(bool(torch.isfinite(v).all()) for v in res.params.values()),
+            "fedavg parameters are not finite")
+    require(balanced > 0.5, f"fedavg balanced accuracy {balanced}")
+    emit({"phase": "fedavg", "parties": n_parties, "epochs": epochs,
+          "balanced_accuracy": balanced, "wall_s": wall,
+          "msg_num": res.msg_num, "msg_size": res.msg_size})
+
+
+KERNELS = [
+    ("share_gen_batch", "repro_share_gen_batch",
+     "src/repro_torch/kernels/csrc/share_gen.cu",
+     "src/repro/kernels/share_gen/kernel.py:140"),
+    ("shamir_share_batch", "repro_shamir_share_batch",
+     "src/repro_torch/kernels/csrc/shamir.cu",
+     "src/repro/kernels/shamir/kernel.py:111"),
+    ("reconstruct", "repro_reconstruct",
+     "src/repro_torch/kernels/csrc/reconstruct.cu",
+     "src/repro/kernels/reconstruct/kernel.py:33"),
+    ("shamir_reconstruct", "repro_shamir_reconstruct",
+     "src/repro_torch/kernels/csrc/shamir.cu",
+     "src/repro/kernels/shamir/kernel.py:158"),
+]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace one round per scheme")
+    args = parser.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {src}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    phase_device()
+    phase_build()
+    rows = phase_kernels()
+
+    n, s = 10_000, 10_000
+    flats = torch.from_numpy(
+        (np.random.RandomState(0).randn(n, s) * 0.1).astype(np.float32)
+    ).cuda()
+    ref_mean = flats.double().mean(0)
+    launches = phase_rounds(flats, ref_mean)
+    if args.profile:
+        phase_profile(flats)
+    del flats, ref_mean
+    torch.cuda.empty_cache()
+    phase_streaming()
+    phase_fedavg()
+
+    kernels = []
+    for name, key, source, replaces in KERNELS:
+        row = rows[name]
+        require(launches.get(key, 0) > 0,
+                f"{name} was not launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no single PyTorch call computes these functions
+            "library_ms": None})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+from .faults import RoundOutcome, apply_faults, quorum_met, resolve_outcome
+from .rounds import FedAvgConfig, FedAvgResult, run_fedavg
+from .simulation import FLSimulation, UnknownPartyError
+from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
+                        Transport, TwoPhaseTransport, make_transport)
+
+__all__ = ["FLSimulation", "Network", "PhaseStats", "FedAvgConfig",
+           "FedAvgResult", "run_fedavg", "RoundOutcome", "apply_faults",
+           "quorum_met", "resolve_outcome", "Transport", "P2PTransport",
+           "TwoPhaseTransport", "PlainTransport", "make_transport",
+           "UnknownPartyError"]

@@ -1,0 +1,153 @@
+"""FedAvg rounds over the simulation backend.
+
+Counterpart of ``repro/fl/rounds.py``: per global epoch every live party
+runs ``local_steps`` local iterations from the shared model, and the
+local models are averaged under MPC (two-phase or P2P), with the
+crash/straggler/elastic handling of ``fl.faults``.  Parameters are dicts
+of tensors on the run's device; they flatten in sorted-key order, as the
+reference's pytrees do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core.aggregation import flatten
+from repro_torch.core.fixed_point import FixedPointConfig
+from repro_torch.kernels import dispatch
+from .faults import RoundOutcome, apply_faults
+from .simulation import FLSimulation
+from .transport import reject_later
+
+
+@dataclasses.dataclass
+class FedAvgConfig:
+    n_parties: int
+    epochs: int = 15
+    local_steps: int = 3
+    committee: int = 3
+    scheme: str = "additive"       # additive | shamir
+    protocol: str = "two_phase"    # two_phase | p2p | plain
+    vote_batch: int = 10
+    seed: int = 0
+    deadline_s: float | None = None
+    #: element-chunk size of the streaming aggregation (None = whole
+    #: vector; the bits are the same either way)
+    chunk_elems: int | None = None
+    shamir_degree: int | None = None
+    fp: FixedPointConfig | None = None
+    # -- knobs of later slices of the port: raise when set ----------------
+    compress_topk: float | None = None
+    backend: str = "sim"
+    vss: bool = False
+    norm_bound: float | None = None
+    dealer_tamper: dict | None = None
+    reelect_each_round: bool = False
+    cohort: int | None = None
+    agg_kwargs: dict | None = None
+
+    def __post_init__(self):
+        reject_later(compress_topk=self.compress_topk, backend=self.backend,
+                     vss=self.vss, norm_bound=self.norm_bound,
+                     dealer_tamper=self.dealer_tamper,
+                     reelect_each_round=self.reelect_each_round,
+                     cohort=self.cohort, agg_kwargs=self.agg_kwargs)
+
+
+@dataclasses.dataclass
+class FedAvgResult:
+    params: dict
+    history: list
+    msg_num: int
+    msg_size: int
+    wall_s: float
+    outcomes: list
+    #: per-phase ``(msg_num, msg_size)`` of the run's ``Network``
+    phases: dict = dataclasses.field(default_factory=dict)
+
+
+def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
+               party_batches: Callable, eval_fn: Callable | None = None,
+               latency_s: dict[int, float] | None = None,
+               membership_schedule: Callable | None = None,
+               device="cuda") -> FedAvgResult:
+    """Generic FedAvg on ``device``.
+
+    init_params: dict of tensors, or an ``nn.Module`` whose parameters
+      start the run
+    local_train_step(params, batch) -> params (one local iteration)
+    party_batches(party, epoch, it) -> batch
+    membership_schedule(epoch) -> set of live party ids (elastic)
+    """
+    device = dispatch.resolve_device(device)
+    if isinstance(init_params, torch.nn.Module):
+        init_params = dict(init_params.named_parameters())
+    params = {k: torch.as_tensor(v).detach().to(device)
+              for k, v in init_params.items()}
+    sim = FLSimulation(cfg.n_parties, m=cfg.committee, scheme=cfg.scheme,
+                       seed=cfg.seed, b=cfg.vote_batch, fp=cfg.fp,
+                       shamir_degree=cfg.shamir_degree,
+                       chunk_elems=cfg.chunk_elems, device=device)
+    _, unflatten = flatten(params)
+    if cfg.protocol == "two_phase":
+        sim.elect_committee()
+    history, outcomes = [], []
+    t0 = time.perf_counter()
+    members = set(range(cfg.n_parties))
+
+    for epoch in range(cfg.epochs):
+        if membership_schedule is not None:
+            new_members = set(membership_schedule(epoch))
+            if new_members != members:
+                members = new_members
+                if cfg.protocol == "two_phase":
+                    sim.elect_committee()  # elastic re-election (Phase I)
+
+        committee = sim.committee if cfg.protocol == "two_phase" else None
+        # reconstruction quorum: all m shares for additive, degree+1
+        # for Shamir
+        if cfg.scheme == "additive":
+            threshold = cfg.committee
+        else:
+            degree = cfg.shamir_degree
+            threshold = (cfg.committee - 1 if degree is None else degree) + 1
+        try:
+            outcome: RoundOutcome = apply_faults(
+                members, latency_s or {}, cfg.deadline_s,
+                seed=cfg.seed, round_index=epoch, committee=committee,
+                reconstruct_threshold=threshold if committee else None)
+        except ValueError:
+            # an elastic shrink can leave the committee under-represented
+            # in the membership; the committee role is share-index
+            # metadata in this simulation, so the round proceeds without
+            # the committee-quorum floor (as in the reference)
+            outcome = apply_faults(
+                members, latency_s or {}, cfg.deadline_s,
+                seed=cfg.seed, round_index=epoch)
+        outcomes.append(outcome)
+
+        live = sorted(outcome.alive)
+        locals_flat = []
+        for i in live:
+            p_i = params
+            for it in range(cfg.local_steps):
+                p_i = local_train_step(p_i, party_batches(i, epoch, it))
+            locals_flat.append(flatten(p_i)[0])
+
+        # survivors keep their original ids: party i always masks with
+        # its own Philox stream regardless of who else dropped
+        mean, _ = sim.aggregate(cfg.protocol, locals_flat, party_ids=live)
+        params = unflatten(mean)
+        if eval_fn is not None:
+            history.append(eval_fn(params, epoch))
+
+    stats = sim.net.stats()
+    return FedAvgResult(params=params, history=history,
+                        msg_num=stats.msg_num, msg_size=stats.msg_size,
+                        wall_s=time.perf_counter() - t0, outcomes=outcomes,
+                        phases={k: (st.msg_num, st.msg_size)
+                                for k, st in sim.net.phases.items()})

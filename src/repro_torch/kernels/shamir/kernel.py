@@ -1,0 +1,55 @@
+"""Launches of the CUDA Shamir kernels (``csrc/shamir.cu``).
+
+Replace ``repro/kernels/shamir/kernel.py:111``
+(``shamir_share_batch_pallas``) and ``:158``
+(``shamir_reconstruct_pallas``).  The source's header note says what
+bounds them on the H100 and how their design answers that.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core.field import U32_MASK
+from repro_torch.core.fixed_point import FixedPointConfig
+from repro_torch.kernels import dispatch
+
+SHARE_NAME = "repro_shamir_share_batch"
+RECONSTRUCT_NAME = "repro_shamir_reconstruct"
+#: coefficient words kept in registers per thread (``kMaxDegree``)
+MAX_DEGREE = 16
+
+
+def shamir_share_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
+                            cfg: FixedPointConfig, degree: int,
+                            counter_base: int = 0):
+    """float32 ``[l, D]`` + int32 keys ``[l, 2]`` -> int32 ``[l, m, D]``."""
+    l, d = flats.shape
+    out = torch.empty((l, m, d), dtype=torch.int32, device=flats.device)
+    if out.numel():
+        dispatch.launch(SHARE_NAME, flats.data_ptr(), keys.data_ptr(),
+                        out.data_ptr(), l, d, m, degree,
+                        counter_base & U32_MASK, cfg.scale, cfg.clip)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _device_weights(weights: tuple[int, ...], device: torch.device):
+    """The Lagrange weights on the card, copied once per point set: a
+    copy from host memory waits for the card to finish its queue."""
+    return torch.tensor(weights, dtype=torch.int32, device=device)
+
+
+def shamir_reconstruct_cuda(member_sums: torch.Tensor, weights, n: int,
+                            cfg: FixedPointConfig):
+    """int32 ``[k, D]`` + host weights -> float32 ``[D]``."""
+    k, d = member_sums.shape
+    w = _device_weights(tuple(int(x) for x in weights), member_sums.device)
+    out = torch.empty((d,), dtype=torch.float32, device=member_sums.device)
+    if d:
+        dispatch.launch(RECONSTRUCT_NAME, member_sums.data_ptr(),
+                        w.data_ptr(), out.data_ptr(), k, d,
+                        1.0 / cfg.scale, float(n))
+    return out

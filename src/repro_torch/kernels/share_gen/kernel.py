@@ -1,0 +1,28 @@
+"""Launch of the CUDA share-generation kernel (``csrc/share_gen.cu``).
+
+Replaces ``repro/kernels/share_gen/kernel.py:140``
+(``share_gen_batch_pallas``).  The source's header note says what bounds
+it on the H100 and how its design answers that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.field import U32_MASK
+from repro_torch.core.fixed_point import FixedPointConfig
+from repro_torch.kernels import dispatch
+
+NAME = "repro_share_gen_batch"
+
+
+def share_gen_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
+                         cfg: FixedPointConfig, counter_base: int = 0):
+    """float32 ``[l, D]`` + int32 keys ``[l, 2]`` -> int32 ``[l, m, D]``."""
+    l, d = flats.shape
+    out = torch.empty((l, m, d), dtype=torch.int32, device=flats.device)
+    if out.numel():
+        dispatch.launch(NAME, flats.data_ptr(), keys.data_ptr(),
+                        out.data_ptr(), l, d, m, counter_base & U32_MASK,
+                        cfg.scale, cfg.clip)
+    return out
