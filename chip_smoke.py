@@ -15,22 +15,34 @@ non-zero without the final result line):
    shapes (a party chunk of l=1024, m=3, D=10,000, plus a ragged
    D=10,001 with a non-zero counter offset): ``torch.equal`` on the bit
    patterns, then median times from CUDA events beside the bound;
+   then the Feldman check ``verify_shares`` at the member-row shape
+   (k=3, D=10,000), a ragged D=10,001 and the audit shape (k=3,
+   D=1,024 x 10,000), each with a known set of tampered elements;
 4. rounds: the two-phase round at n=10,000 parties and s=10,000
    elements, additive and Shamir, through ``make_transport`` on the
    card, with counters against Eqs. 3-6, the mean bit for bit against
    the same round through the plain versions on the card, and within
    the fixed-point rounding of the float64 plain mean;
-5. streaming: chunked aggregation equals the whole vector, and the card
+5. vss: the malicious-secure round (Feldman VSS, per-round
+   re-election) at n=2,048, s=10,000: an honest round, then a member
+   tampering with ``flip``, ``wrong_poly`` and ``replay`` in turn,
+   each blamed, evicted and re-elected away with the honest mean;
+6. audit: the norm-bound dealer audit at n=1,024, s=10,000 with a
+   ``scale`` and a ``sign_flip`` dealer, both blamed, and a
+   ``malformed`` dealer that fails the round;
+7. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
-6. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-7. summary: a ``{"kernels": [...]}`` line, then the result line.
+8. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+9. summary: a ``{"kernels": [...]}`` line, then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
 one n=10,000 round per scheme after the checks: the device time by
-kernel name and the device's busy share of the round.
+kernel name and the device's busy share of the round; and of one VSS
+round, with its device time split between commitment generation,
+member sums and verification.
 """
 
 from __future__ import annotations
@@ -62,6 +74,14 @@ PHILOX_OPS = 100
 FIELD_MUL_OPS = 12
 FIELD_ADD_OPS = 6
 TO_FIELD_OPS = 3
+#: integer operations of F_q, q = 2^59 - 2^28 + 1, as
+#: ``kernels/csrc/fq.cuh`` spells them out (one per 64-bit source
+#: operation): qmul 20; a step of the fixed-base ladder is a qmul, a
+#: shift, an and and a select
+QMUL_OPS = 20
+LADDER_STEP_OPS = QMUL_OPS + 3
+#: h^s: the first bit is a select, then 30 ladder steps
+GPOW_OPS = 2 + 30 * LADDER_STEP_OPS
 
 
 def emit(obj) -> None:
@@ -240,8 +260,78 @@ def phase_kernels() -> dict:
     return rows
 
 
+def verify_ops(points, c: int) -> int:
+    """Integer operations of one element of ``verify_shares`` over its
+    rows: the ladder, the Horner in the exponent (``qpow`` by point x is
+    bitlen(x) - 1 squarings and popcount(x) - 1 multiplies), and the
+    comparison."""
+    total = 0
+    for x in points:
+        qpow = (x.bit_length() - 1) + (bin(x).count("1") - 1)
+        total += GPOW_OPS + (c - 1) * (qpow + 1) * QMUL_OPS + 1
+    return total
+
+
+def phase_verify_kernel() -> dict:
+    """``verify_shares`` against its plain version at the member-row,
+    ragged and audit shapes; returns the timing rows."""
+    import torch
+    from repro_torch.core import philox, shamir
+    from repro_torch.core.field import MERSENNE_P, to_i32
+    from repro_torch.fl.faults import TAMPER_FLIP_MASK
+    from repro_torch.kernels.verify_shares import (verify_shares,
+                                                   verify_shares_ref)
+    points, c = (1, 2, 3), 2
+    rows_out = {}
+    for shape, d in (("member", 10_000), ("ragged", 10_001),
+                     ("audit", 1024 * 10_000)):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        v = torch.randint(0, MERSENNE_P, (d,), device="cuda", generator=gen)
+        k0, k1 = philox.derive_key(5, d)
+        shares, commits = shamir.share_with_commitments(v, 3, k0, k1,
+                                                        degree=c - 1)
+        rows = to_i32(shares).contiguous()
+        cm = to_i32(commits).contiguous()
+        del v, shares, commits
+        # a known set of tampered elements: every 997th of row 1, and
+        # the first and last of row 2
+        bad = torch.arange(7, d, 997, device="cuda")
+        rows[1, bad] ^= TAMPER_FLIP_MASK
+        rows[2, [0, d - 1]] ^= TAMPER_FLIP_MASK
+        n_bad = bad.numel() + 2
+        got = verify_shares(rows, cm, points)
+        want = verify_shares_ref(rows, cm, points)
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        require(same, f"verify_shares differs from its plain version at "
+                      f"{shape} D={d} (max abs err {err})")
+        zeros = int((got == 0).sum())
+        require(zeros == n_bad,
+                f"verify_shares at D={d}: {zeros} elements fail, "
+                f"{n_bad} were tampered")
+        entry = {"phase": "kernel", "name": "verify_shares", "shape": shape,
+                 "k": len(points), "d": d, "equal": True,
+                 "max_abs_err": err, "flags_zero": zeros,
+                 "tampered": n_bad}
+        if shape != "ragged":
+            b_ms, b_by = bound(
+                4 * len(points) * d * 2 + 8 * c * d + 4 * len(points),
+                d * verify_ops(points, c))
+            entry.update(ms=cuda_ms(lambda: verify_shares(rows, cm, points),
+                                    20),
+                         plain_ms=cuda_ms(
+                             lambda: verify_shares_ref(rows, cm, points), 3),
+                         bound_ms=b_ms, bound_by=b_by)
+            rows_out[shape] = entry
+        emit(entry)
+        del rows, cm, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def plain_round_mean(flats, scheme: str, fp, m: int, seed: int,
-                     chunk: int):
+                     chunk: int, ids=None):
     """A round-0 mean at full committee, recomputed on the card through
     the plain share and reconstruct versions, party chunk by party chunk,
     with a fold of its own: what the transport's chunk loop, key
@@ -256,7 +346,9 @@ def plain_round_mean(flats, scheme: str, fp, m: int, seed: int,
     from repro_torch.kernels.share_gen import share_gen_batch_ref
     n = flats.shape[0]
     # round 0: party p keys its stream with id p
-    k0, k1 = philox.derive_key(seed, torch.arange(n, device=flats.device))
+    ids = (torch.arange(n, device=flats.device) if ids is None
+           else torch.as_tensor(ids, device=flats.device))
+    k0, k1 = philox.derive_key(seed, ids)
     keys = torch.stack([k0, k1], dim=1)
     acc = None
     for lo in range(0, n, chunk):
@@ -382,6 +474,205 @@ def phase_profile(flats) -> None:
                       for k, t, c in rows[:10]]})
 
 
+def phase_profile_vss(flats) -> None:
+    """Device time of one VSS round, split by the transport's ranges:
+    commitment generation, member sums and verification."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import make_transport
+    fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra="field")
+    tr = make_transport("two_phase", flats.shape[0], m=3, seed=1, fp=fp,
+                        scheme="shamir", shamir_degree=1, chunk=1024,
+                        vss=True, device="cuda")
+    tr.elect()
+    tr.aggregate(flats, round_index=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.aggregate(flats, round_index=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    labels = ("vss_commit", "vss_member_sums", "vss_verify")
+    # a range's host-side row sums the kernels launched inside it; its
+    # row on the card is the range's span there, not kernel time
+    split = {label: sum(e.device_time_total for e in avg
+                        if e.key == label
+                        and e.device_type == DeviceType.CPU) / 1e3
+             for label in labels}
+    span = {label: sum(e.self_device_time_total for e in avg
+                       if e.key == label
+                       and e.device_type == DeviceType.CUDA) / 1e3
+            for label in labels}
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in avg if e.device_type == DeviceType.CUDA
+                   and e.key not in labels
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    require(rows, "vss: the trace shows no kernel on the card")
+    busy_ms = sum(r[1] for r in rows)
+    emit({"phase": "profile", "scheme": "shamir_vss", "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+          "device_ms_by_range": split, "device_span_ms_by_range": span,
+          "top": [{"kernel": k[:90], "ms": t, "calls": c}
+                  for k, t, c in rows[:10]]})
+
+
+def _timed(fn):
+    """Host wall seconds of ``fn`` up to a synchronize, and its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_vss(flats) -> int:
+    """The malicious-secure round on the card: an honest round, then a
+    member of each round's committee tampering with flip, wrong_poly and
+    replay in turn.  Returns the verify_shares launches."""
+    import torch
+    from repro_torch.core import committee, costmodel
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import make_transport
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.verify_shares import verify_shares
+    n, s = flats.shape
+    m, deg, seed, chunk, b = 3, 1, 1, 1024, 10
+    fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra="field")
+    kw = dict(m=m, seed=seed, fp=fp, scheme="shamir", shamir_degree=deg,
+              chunk=chunk, device="cuda")
+    # the honest means: the non-VSS Shamir rounds of the same seed
+    plain = make_transport("two_phase", n, **kw)
+    honest = [plain.aggregate(flats, round_index=r) for r in range(4)]
+    tr = make_transport("two_phase", n, vss=True, reelect_each_round=True,
+                        **kw)
+    elect_rounds = []
+    dispatch.reset_launches()
+    for r, mode in enumerate((None, "flip", "wrong_poly", "replay")):
+        want_rounds = committee.elect(
+            n, m, b, seed + r, exclude=set(tr.evicted),
+            reputation=dict(tr.reputation) or None).rounds
+        elect_s, com = _timed(lambda: tr.elect(r))
+        elect_rounds.append(want_rounds)
+        victim = com[0] if mode else None
+        tamper = {victim: mode} if mode else None
+        round_s, mean = _timed(lambda: tr.aggregate(
+            flats, round_index=r, committee_tamper=tamper))
+        require(torch.equal(mean.view(torch.int32),
+                            honest[r].view(torch.int32)),
+                f"vss round {r} ({mode}): the mean differs from the "
+                "honest round of that index")
+        out = tr.last_outcome
+        require(out.blamed == ({victim} if mode else set()),
+                f"vss round {r} ({mode}): blamed {out.blamed}")
+        if mode:
+            require(victim in tr.evicted,
+                    f"vss round {r}: {victim} not evicted")
+            nxt = committee.elect(
+                n, m, b, seed + r + 1, exclude=set(tr.evicted),
+                reputation=dict(tr.reputation) or None,
+                device="cuda").committee
+            require(victim not in nxt,
+                    f"vss round {r}: {victim} re-elected in {nxt}")
+        emit({"phase": "vss_round", "round": r, "mode": mode, "n": n,
+              "s": s, "m": m, "degree": deg, "committee": list(com),
+              "blamed": sorted(out.blamed), "evicted": sorted(tr.evicted),
+              "phase1_wall_s": elect_s, "phase2_wall_s": round_s,
+              "equal_to_honest_round": True})
+    launches = dict(dispatch.launches)
+    require(launches["repro_verify_shares"] > 0,
+            f"the vss rounds launched no verify_shares: {launches}")
+    require(launches["repro_shamir_share_batch"] > 0,
+            f"the vss rounds launched no shamir_share_batch: {launches}")
+    p = costmodel.CostParams(n=n, e=1, s=s, m=m, b=b)
+    p4 = costmodel.CostParams(n=n, e=4, s=s, m=m, b=b)
+    st1 = tr.net.stats("phase1")
+    require(st1.msg_num == sum(elect_rounds) * costmodel.phase1_msg_num(p)
+            and st1.msg_size
+            == sum(elect_rounds) * costmodel.phase1_msg_size(p),
+            f"vss phase 1 counters {st1} differ from the re-election forms")
+    if elect_rounds == [1] * 4:
+        require(st1.msg_num == costmodel.phase1_msg_num_reelect(p4),
+                "vss phase 1 counters differ from phase1_msg_num_reelect")
+    stc = tr.net.stats("phase2_commit")
+    require(stc.msg_num == costmodel.phase2_commit_msg_num(p4)
+            and stc.msg_size == costmodel.phase2_commit_msg_size(p4, deg),
+            f"vss commitment counters {stc} differ from phase2_commit_*")
+    # the round's pieces, timed alone on the same inputs: commitment
+    # generation (plain PyTorch on the card) and the member-row check
+    ids = list(range(n))
+    commit_s, agg = _timed(lambda: tr._aggregate_commits(flats, ids, 0, 0,
+                                                         s))
+    sums_s, sums = _timed(lambda: tr._member_sums(flats, ids, 0, s))
+    verify_s, ok = _timed(lambda: verify_shares(sums, agg, (1, 2, 3)))
+    require(bool(ok.bool().all()), "the honest member rows do not verify")
+    emit({"phase": "vss", "n": n, "s": s, "rounds": 4,
+          "elect_rounds": elect_rounds, "launches": launches,
+          "phase1_msg_num": st1.msg_num,
+          "phase2_commit_msg_num": stc.msg_num,
+          "phase2_commit_msg_size": stc.msg_size,
+          "commit_wall_s": commit_s, "member_sums_wall_s": sums_s,
+          "verify_wall_s": verify_s,
+          "verify_ms": cuda_ms(lambda: verify_shares(sums, agg, (1, 2, 3)),
+                               20)})
+    return launches["repro_verify_shares"]
+
+
+def phase_audit(flats) -> int:
+    """The norm-bound dealer audit on the card.  Returns the
+    verify_shares launches."""
+    import torch
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import make_transport
+    from repro_torch.kernels import dispatch
+    n, s = flats.shape
+    m, deg, seed, bound_l2 = 3, 1, 1, 8.0
+    fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra="field")
+    kw = dict(m=m, seed=seed, fp=fp, scheme="shamir", shamir_degree=deg,
+              chunk=1024, vss=True, norm_bound=bound_l2, device="cuda")
+    poisoners = {17: ("scale", 0), 900: ("sign_flip", 0)}
+    tr = make_transport("two_phase", n, dealer_tamper=poisoners, **kw)
+    tr.elect(0)
+    dispatch.reset_launches()
+    round_s, mean = _timed(lambda: tr.aggregate(flats, round_index=0))
+    launches = dict(dispatch.launches)
+    require(launches["repro_verify_shares"] >= 2,
+            f"the audit round launched verify_shares {launches}")
+    out = tr.last_outcome
+    require(out.blamed_dealers == set(poisoners),
+            f"audit blamed {out.blamed_dealers}, poisoned {set(poisoners)}")
+    # the mean is the decoded sum of the honest dealers' secrets, so the
+    # plain recomputation may share at degree m-1
+    honest = [i for i in range(n) if i not in poisoners]
+    want = plain_round_mean(flats[honest].contiguous(), "shamir", fp, m,
+                            seed, 1024, ids=honest)
+    require(torch.equal(mean.view(torch.int32), want.view(torch.int32)),
+            "the audited mean differs from the honest dealers' mean through "
+            "the plain versions on the card")
+    bad = make_transport("two_phase", n, dealer_tamper={5: ("malformed", 0)},
+                         **kw)
+    bad.elect(0)
+    try:
+        bad.aggregate(flats, round_index=0)
+    except ValueError as e:
+        require("dealer share verification failed for parties [5]"
+                in str(e), f"malformed dealer: {e}")
+    else:
+        raise AssertionError("a malformed dealer did not fail the round")
+    norms = [float((flats[i].double() * (32.0 if i in poisoners else 1.0))
+                   .norm()) for i in (0, *sorted(poisoners))]
+    emit({"phase": "audit", "n": n, "s": s, "norm_bound": bound_l2,
+          "blamed_dealers": sorted(out.blamed_dealers),
+          "phase2_wall_s": round_s, "launches": launches,
+          "norms_honest_and_poisoned": norms,
+          "equal_to_plain_honest_mean": True, "malformed_raises": True})
+    return launches["repro_verify_shares"]
+
+
 def phase_streaming() -> None:
     import torch
     from repro_torch.fl import make_transport
@@ -470,13 +761,17 @@ KERNELS = [
     ("shamir_reconstruct", "repro_shamir_reconstruct",
      "src/repro_torch/kernels/csrc/shamir.cu",
      "src/repro/kernels/shamir/kernel.py:158"),
+    ("verify_shares", "repro_verify_shares",
+     "src/repro_torch/kernels/csrc/verify_shares.cu",
+     "src/repro/kernels/verify_shares/kernel.py:43"),
 ]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one round per scheme")
+                        help="also trace one round per scheme and one "
+                             "VSS round")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -500,6 +795,10 @@ def main(argv=None) -> int:
     phase_device()
     phase_build()
     rows = phase_kernels()
+    verify_rows = phase_verify_kernel()
+    # the kernels line reports verify_shares at the audit shape, the
+    # largest the main path gives it
+    rows["verify_shares"] = verify_rows["audit"]
 
     n, s = 10_000, 10_000
     flats = torch.from_numpy(
@@ -509,7 +808,14 @@ def main(argv=None) -> int:
     launches = phase_rounds(flats, ref_mean)
     if args.profile:
         phase_profile(flats)
-    del flats, ref_mean
+    del ref_mean
+    vss_flats = flats[:2048].contiguous()
+    launches["repro_verify_shares"] = phase_vss(vss_flats)
+    if args.profile:
+        phase_profile_vss(vss_flats)
+    launches["repro_verify_shares"] += phase_audit(
+        (flats[:1024] * 0.1).contiguous())
+    del flats, vss_flats
     torch.cuda.empty_cache()
     phase_streaming()
     phase_fedavg()

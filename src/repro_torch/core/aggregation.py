@@ -128,19 +128,30 @@ class SecureAggregator:
 
     # -- party side -----------------------------------------------------
 
-    def _party_keys(self, seed: int, ids: torch.Tensor,
-                    round_index: int) -> torch.Tensor:
-        """Keys ``[l, 2]`` of the parties' streams, in the carrier of the
-        aggregator's device, derived where the shares are made.
+    def encode(self, flats):
+        """float32 updates -> ``int64`` codewords of the scheme's codec."""
+        return self.fp.encode(self._flats(flats))
+
+    def party_key_words(self, seed: int, party_ids,
+                        round_index: int = 0) -> torch.Tensor:
+        """``int64`` keys ``[l, 2]`` of the parties' streams on the
+        aggregator's device.
 
         Party ``i`` keys its stream with ``derive_key(seed,
         (round_index << 24) | i)``, passed as the ``(lo, hi)`` word pair
         so the high word of a round index >= 256 is kept.
         """
+        ids = self._ids(party_ids)
         stream_lo = ((round_index << 24) & U32_MASK) | ids
         stream_hi = (round_index << 24) >> 32
         k0, k1 = derive_key(seed, (stream_lo, stream_hi))
-        keys = torch.stack([k0, k1], dim=1)
+        return torch.stack([k0, k1], dim=1)
+
+    def _party_keys(self, seed: int, ids: torch.Tensor,
+                    round_index: int) -> torch.Tensor:
+        """``party_key_words`` in the carrier of the aggregator's device,
+        derived where the shares are made."""
+        keys = self.party_key_words(seed, ids, round_index)
         if self.device.type == "cuda":
             keys = to_i32(keys).contiguous()
         return keys

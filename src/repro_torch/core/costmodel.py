@@ -95,3 +95,97 @@ def summary(p: CostParams) -> dict:
         "twophase_msg_size": twophase_msg_size(p),
         "reduction_factor": reduction_factor(p),
     }
+
+
+# -- Feldman-VSS commitment broadcast (Eq. 5-6 extensions) -------------------
+#
+# With verifiable secret sharing each party sends its Feldman commitments
+# to each committee member beside its share upload: one message per
+# (party, member) of ``(degree+1) * 2 * s`` words (two 32-bit limbs per
+# element of F_q).  Verification is local, so the commitment legs are the
+# whole extension; the transport counts them under ``phase2_commit``.
+
+
+def _vss_degree(p: CostParams, degree: int | None) -> int:
+    return (p.m - 1) if degree is None else int(degree)
+
+
+def vss_commit_elems(p: CostParams, degree: int | None = None) -> int:
+    """Elements per commitment message: (d+1) coefficients x 2 limbs."""
+    return (_vss_degree(p, degree) + 1) * 2 * p.s
+
+
+def phase2_commit_msg_num(p: CostParams) -> int:
+    """One commitment message per (party, member) per epoch."""
+    return p.n * p.m * p.e
+
+
+def phase2_commit_msg_size(p: CostParams, degree: int | None = None) -> int:
+    return phase2_commit_msg_num(p) * vss_commit_elems(p, degree)
+
+
+def twophase_msg_num_vss(p: CostParams) -> int:
+    """Eq. 7 extended with the commitment legs."""
+    return twophase_msg_num(p) + phase2_commit_msg_num(p)
+
+
+def twophase_msg_size_vss(p: CostParams, degree: int | None = None) -> int:
+    """Eq. 8 extended with the commitment legs."""
+    return twophase_msg_size(p) + phase2_commit_msg_size(p, degree)
+
+
+def vss_overhead_factor(p: CostParams, degree: int | None = None) -> float:
+    """VSS-extended elements / plain two-phase elements."""
+    return twophase_msg_size_vss(p, degree) / twophase_msg_size(p)
+
+
+# -- Norm-bound dealer audit ---------------------------------------------------
+#
+# With ``norm_bound`` each non-final live member forwards its per-dealer
+# share rows to the final member, which reconstructs every dealer's
+# update and blames those above the bound: one message per (non-final
+# member, epoch) of ``n * s`` elements, counted under ``phase2_audit``.
+
+
+def phase2_audit_elems(p: CostParams) -> int:
+    """Elements per audit message: n dealer rows of s elements."""
+    return p.n * p.s
+
+
+def phase2_audit_msg_num(p: CostParams) -> int:
+    """One audit message per non-final live member per epoch."""
+    return (p.m - 1) * p.e
+
+
+def phase2_audit_msg_size(p: CostParams) -> int:
+    return phase2_audit_msg_num(p) * phase2_audit_elems(p)
+
+
+# -- Per-round committee re-election (Eqs. 3-4 every epoch) -------------------
+#
+# Alg. 2 run every round multiplies the election legs by e (for the
+# common single-subround election; the transport counts the subrounds
+# it actually ran).
+
+
+def phase1_msg_num_reelect(p: CostParams) -> int:
+    return p.e * phase1_msg_num(p)
+
+
+def phase1_msg_size_reelect(p: CostParams) -> int:
+    return p.e * phase1_msg_size(p)
+
+
+def summary_vss(p: CostParams, degree: int | None = None) -> dict:
+    return {
+        "n": p.n, "m": p.m, "e": p.e, "s": p.s, "b": p.b,
+        "degree": _vss_degree(p, degree),
+        "vss_commit_elems": vss_commit_elems(p, degree),
+        "phase2_commit_msg_num": phase2_commit_msg_num(p),
+        "phase2_commit_msg_size": phase2_commit_msg_size(p, degree),
+        "twophase_msg_num_vss": twophase_msg_num_vss(p),
+        "twophase_msg_size_vss": twophase_msg_size_vss(p, degree),
+        "vss_overhead_factor": vss_overhead_factor(p, degree),
+        "phase1_msg_num_reelect": phase1_msg_num_reelect(p),
+        "phase1_msg_size_reelect": phase1_msg_size_reelect(p),
+    }

@@ -5,7 +5,8 @@ of a degree-``d`` polynomial with Philox coefficients; share ``w`` is its
 value at ``x = w`` (1-based), by Horner's rule; any ``d+1`` shares give
 back the secret by Lagrange interpolation at 0.  As in ``core.additive``
 the codeword is the last axis and leading axes are a batch of parties.
-The commitment helpers come with the verifiable-sharing slice.
+``share_with_commitments`` adds the Feldman commitments of ``core.vss``
+and ``reconstruct_verified`` drops the rows that fail them.
 """
 
 from __future__ import annotations
@@ -76,3 +77,52 @@ def reconstruct(shares, points: tuple[int, ...] | None = None):
     for i in range(1, k):
         acc = fadd(acc, fmul(shares[i], ws[i]))
     return acc
+
+
+def share_with_commitments(v, m: int, key0, key1,
+                           degree: int | None = None,
+                           counter_base: int = 0):
+    """``share()`` plus Feldman commitments to the same polynomial.
+
+    The commitments re-derive the coefficients from the same
+    ``(key, counter_base)`` as the shares, so a chunk at offset ``off``
+    with ``counter_base=off//4`` gives the sliced whole-vector result.
+
+    Returns ``(shares [m, *v.shape], commits [*v.shape, d+1, 2])``, both
+    ``int64`` words.
+    """
+    from . import vss
+    d = (m - 1) if degree is None else degree
+    shares = share(v, m, key0, key1, degree=degree,
+                   counter_base=counter_base)
+    commits = vss.feldman_commit(v, key0, key1, degree=d,
+                                 counter_base=counter_base)
+    return shares, commits
+
+
+def reconstruct_verified(member_rows, agg_commits,
+                         points: tuple[int, ...], degree: int):
+    """Verify member rows ``[k, D]`` against aggregate commitments
+    ``[D, degree+1, 2]``, reconstruct from the verified rows, and name
+    the failing ones.
+
+    Returns ``(value [D], bad_rows)``; raises ``ValueError`` when fewer
+    than ``degree + 1`` rows verify.
+    """
+    from . import vss
+    member_rows = u32(member_rows)
+    k = int(member_rows.shape[0])
+    if len(points) != k:
+        raise ValueError("points/rows length mismatch")
+    ok = [bool(vss.verify_share(member_rows[i], agg_commits,
+                                points[i]).all())
+          for i in range(k)]
+    good = [i for i in range(k) if ok[i]]
+    bad = tuple(i for i in range(k) if not ok[i])
+    if len(good) < degree + 1:
+        raise ValueError(
+            f"only {len(good)} of {k} member rows verified but "
+            f"reconstruction needs degree+1={degree + 1}")
+    value = reconstruct(member_rows[good],
+                        points=tuple(points[i] for i in good))
+    return value, bad

@@ -3,9 +3,9 @@
 A copy of the numpy fault model of ``repro/fl/faults.py`` (the port
 imports nothing of the reference): per-round crash/straggler draws from
 ``(seed, round_index)``, and one outcome brain (``resolve_outcome``)
-that applies the committee quorum and the liveness floor.  The blame
-sets are carried for the malicious-security slice; this slice never
-fills them.
+that applies the committee quorum and the liveness floor, with the
+blame sets of the malicious-secure round (tampering committee members,
+poisoning dealers).
 """
 
 from __future__ import annotations
@@ -15,15 +15,41 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+#: Deterministic corruptions of a tampering committee member
+#: (``committee_tamper=``): flip bits of its partial sum with this mask,
+#: send a row of a polynomial keyed with the seed xor this constant, or
+#: replay its round r-1 row.
+TAMPER_FLIP_MASK = 0x00FF00FF
+TAMPER_SEED_XOR = 0xBADBAD
+TAMPER_MODES = ("flip", "wrong_poly", "replay")
+
+#: Dealer adversary (``dealer_tamper=``): ``scale``/``sign_flip`` share
+#: an update multiplied by +-POISON_SCALE (honest shares of a poisoned
+#: value, caught by the norm audit); ``malformed`` corrupts its share
+#: stream under honest commitments (caught by the per-dealer check, a
+#: fatal protocol violation).  POISON_SCALE stays inside the codec's
+#: clip, so the audit, not the clamp, catches the poison.
+POISON_SCALE = 32.0
+DEALER_TAMPER_MODES = ("scale", "sign_flip", "malformed")
+
+
+def update_norm(decoded) -> float:
+    """L2 norm of a decoded per-dealer update: float64 accumulation over
+    the float32 decode, on the host, as the reference computes it, so
+    the norm-bound blame decision is the reference's."""
+    return float(np.linalg.norm(np.asarray(decoded, dtype=np.float64)))
+
 
 @dataclasses.dataclass
 class RoundOutcome:
     alive: set
     dropped: set
     straggled: set
-    #: committee members caught tampering (malicious-security slice)
+    #: committee members caught tampering by the commitment check this
+    #: round (evicted from later elections)
     blamed: set = dataclasses.field(default_factory=set)
-    #: dealers whose updates were rejected (malicious-security slice)
+    #: dealers whose updates broke the norm bound this round (left out of
+    #: the mean, banned by the FedAvg driver)
     blamed_dealers: set = dataclasses.field(default_factory=set)
 
 

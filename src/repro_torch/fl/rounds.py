@@ -3,9 +3,11 @@
 Counterpart of ``repro/fl/rounds.py``: per global epoch every live party
 runs ``local_steps`` local iterations from the shared model, and the
 local models are averaged under MPC (two-phase or P2P), with the
-crash/straggler/elastic handling of ``fl.faults``.  Parameters are dicts
-of tensors on the run's device; they flatten in sorted-key order, as the
-reference's pytrees do.
+crash/straggler/elastic handling of ``fl.faults``, and the blame of the
+malicious-secure round: a blamed member or dealer is banned for the rest
+of the run and the committee is re-elected without it.  Parameters are
+dicts of tensors on the run's device; they flatten in sorted-key order,
+as the reference's pytrees do.
 """
 
 from __future__ import annotations
@@ -40,21 +42,22 @@ class FedAvgConfig:
     chunk_elems: int | None = None
     shamir_degree: int | None = None
     fp: FixedPointConfig | None = None
+    #: Feldman verifiable secret sharing (Shamir only — DESIGN.md §10)
+    vss: bool = False
+    #: L2 norm bound of the dealer audit (needs vss — DESIGN.md §11)
+    norm_bound: float | None = None
+    #: injected dealer adversary {party: (mode, round)} (DESIGN.md §11)
+    dealer_tamper: dict | None = None
+    #: re-run Alg. 2 every epoch
+    reelect_each_round: bool = False
     # -- knobs of later slices of the port: raise when set ----------------
     compress_topk: float | None = None
     backend: str = "sim"
-    vss: bool = False
-    norm_bound: float | None = None
-    dealer_tamper: dict | None = None
-    reelect_each_round: bool = False
     cohort: int | None = None
     agg_kwargs: dict | None = None
 
     def __post_init__(self):
         reject_later(compress_topk=self.compress_topk, backend=self.backend,
-                     vss=self.vss, norm_bound=self.norm_bound,
-                     dealer_tamper=self.dealer_tamper,
-                     reelect_each_round=self.reelect_each_round,
                      cohort=self.cohort, agg_kwargs=self.agg_kwargs)
 
 
@@ -66,6 +69,10 @@ class FedAvgResult:
     msg_size: int
     wall_s: float
     outcomes: list
+    #: parties banned mid-run by the transport's blame (tampering
+    #: members and poisoning dealers); a banned party never rejoins, even
+    #: if the membership schedule lists it again
+    banned: set = dataclasses.field(default_factory=set)
     #: per-phase ``(msg_num, msg_size)`` of the run's ``Network``
     phases: dict = dataclasses.field(default_factory=dict)
 
@@ -91,17 +98,22 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
     sim = FLSimulation(cfg.n_parties, m=cfg.committee, scheme=cfg.scheme,
                        seed=cfg.seed, b=cfg.vote_batch, fp=cfg.fp,
                        shamir_degree=cfg.shamir_degree,
-                       chunk_elems=cfg.chunk_elems, device=device)
+                       chunk_elems=cfg.chunk_elems, device=device,
+                       vss=cfg.vss, norm_bound=cfg.norm_bound,
+                       dealer_tamper=cfg.dealer_tamper,
+                       reelect_each_round=cfg.reelect_each_round)
     _, unflatten = flatten(params)
     if cfg.protocol == "two_phase":
         sim.elect_committee()
     history, outcomes = [], []
     t0 = time.perf_counter()
     members = set(range(cfg.n_parties))
+    banned: set[int] = set()
 
     for epoch in range(cfg.epochs):
         if membership_schedule is not None:
-            new_members = set(membership_schedule(epoch))
+            # blame is sticky: a banned party never rejoins
+            new_members = set(membership_schedule(epoch)) - banned
             if new_members != members:
                 members = new_members
                 if cfg.protocol == "two_phase":
@@ -141,6 +153,21 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
         # survivors keep their original ids: party i always masks with
         # its own Philox stream regardless of who else dropped
         mean, _ = sim.aggregate(cfg.protocol, locals_flat, party_ids=live)
+
+        if cfg.protocol == "two_phase":
+            # fold the transport's blame (tampering members, poisoning
+            # dealers) into the round's outcome, ban the offenders and
+            # re-elect: the transport has evicted them from elections
+            t_out = sim.transports["two_phase"].last_outcome
+            newly = (set() if t_out is None
+                     else (t_out.blamed | t_out.blamed_dealers) & members)
+            if newly:
+                outcome.blamed |= t_out.blamed & members
+                outcome.blamed_dealers |= t_out.blamed_dealers & members
+                outcome.alive -= newly
+                banned |= newly
+                members = members - newly
+                sim.elect_committee()
         params = unflatten(mean)
         if eval_fn is not None:
             history.append(eval_fn(params, epoch))
@@ -149,5 +176,6 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
     return FedAvgResult(params=params, history=history,
                         msg_num=stats.msg_num, msg_size=stats.msg_size,
                         wall_s=time.perf_counter() - t0, outcomes=outcomes,
+                        banned=banned,
                         phases={k: (st.msg_num, st.msg_size)
                                 for k, st in sim.net.phases.items()})

@@ -3,8 +3,10 @@
 Counterpart of ``repro/fl/simulation.py``: a thin shell holding one
 counting transport per protocol, all sharing one ``Network``, so the
 counters can be held against the closed forms of Eqs. 1–8
-(``core.costmodel``).  The wire backend and the malicious-security
-knobs belong to later slices and raise ``NotImplementedError``.
+(``core.costmodel``).  The malicious-security knobs (``vss``,
+``reelect_each_round``, ``norm_bound``, ``dealer_tamper``) go to the
+two-phase transport; the wire backend and cohorts belong to later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,9 +40,7 @@ class FLSimulation:
                  norm_bound: float | None = None,
                  dealer_tamper: dict | None = None,
                  cohort: int | None = None):
-        reject_later(compression=compression, backend=backend, vss=vss,
-                     reelect_each_round=reelect_each_round,
-                     norm_bound=norm_bound, dealer_tamper=dealer_tamper,
+        reject_later(compression=compression, backend=backend,
                      cohort=cohort)
         self.device = dispatch.resolve_device(device)
         self.n = n
@@ -57,7 +57,12 @@ class FLSimulation:
         self.transports: dict[str, Transport] = {
             "plain": PlainTransport(n, **kw),
             "p2p": P2PTransport(n, **kw),
-            "two_phase": TwoPhaseTransport(n, **kw),
+            # the malicious-security knobs are two-phase only:
+            # commitments verify committee partial sums, and per-round
+            # re-election is the committee's Phase I
+            "two_phase": TwoPhaseTransport(
+                n, vss=vss, reelect_each_round=reelect_each_round,
+                norm_bound=norm_bound, dealer_tamper=dealer_tamper, **kw),
         }
 
     @property
@@ -92,12 +97,15 @@ class FLSimulation:
 
     def aggregate_two_phase(self, flats: list,
                             alive: set[int] | None = None,
-                            committee_dropout=()):
-        """Alg. 3: share upload -> committee chain-sum -> broadcast."""
+                            committee_dropout=(),
+                            committee_tamper: dict | None = None):
+        """Alg. 3: share upload -> committee chain-sum -> broadcast, with
+        injected member dropouts and (``vss=True``) member tampering."""
         live = sorted(alive) if alive is not None else list(range(self.n))
         mean = self.transports["two_phase"].aggregate(
             [flats[i] for i in live], party_ids=live,
-            round_index=self.round, committee_dropout=committee_dropout)
+            round_index=self.round, committee_dropout=committee_dropout,
+            committee_tamper=committee_tamper)
         self.round += 1
         return mean, self.net.stats()
 

@@ -7,7 +7,9 @@ Counterpart of the counting transports of ``repro/fl/transport.py``:
 * ``TwoPhaseTransport`` — Phase I election (Alg. 2, 2·n·(n−1) messages
   of b per election round, Eqs. 3–4) and Phase II (Alg. 3: l·m uploads,
   m−1 chain exchanges, n broadcasts, Eqs. 5–6), with party dropouts and
-  Shamir committee dropouts.
+  Shamir committee dropouts; with ``vss=True`` the malicious-secure
+  round: Feldman commitments, member-row verification, blame, eviction
+  and re-election, and the per-dealer norm audit (DESIGN.md §10–11).
 
 The party-side math runs through ``SecureAggregator`` on the
 transport's device.  Knobs of later slices of the port raise
@@ -21,11 +23,17 @@ import dataclasses
 from typing import Sequence
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import committee as committee_mod
+from repro_torch.core import philox, vss
 from repro_torch.core.aggregation import SecureAggregator, _check_chunk_elems
+from repro_torch.core.field import to_field, to_i32, words_like
 from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.verify_shares import verify_shares
+from .faults import (DEALER_TAMPER_MODES, POISON_SCALE, TAMPER_FLIP_MASK,
+                     TAMPER_SEED_XOR, resolve_outcome, update_norm)
 
 __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
            "Transport", "TwoPhaseTransport", "make_transport",
@@ -34,18 +42,14 @@ __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
 #: Knobs of the reference that later slices of the port carry over
 #: (ROADMAP.md, queue 1), and the slice each belongs to.
 LATER_SLICES = {
-    "vss": "malicious security (queue 1, item 7)",
-    "norm_bound": "malicious security (queue 1, item 7)",
-    "dealer_tamper": "malicious security (queue 1, item 7)",
-    "committee_tamper": "malicious security (queue 1, item 7)",
-    "reelect_each_round": "malicious security (queue 1, item 7)",
-    "cohort": "cohorts, with malicious security (queue 1, item 7)",
-    "eligible": "cohorts, with malicious security (queue 1, item 7)",
-    "compression": "top-k compression (queue 1, item 5)",
-    "compress_topk": "top-k compression (queue 1, item 5)",
-    "backend": "the wire transport (queue 1, item 8) and SPMD "
-               "(queue 1, item 9)",
-    "agg_kwargs": "the typed experiment API (queue 1, item 7)",
+    "cohort": "the cohort slice (queue 1, item 1)",
+    "eligible": "the cohort slice (queue 1, item 1)",
+    "agg_kwargs": "the typed experiment API of the cohort slice "
+                  "(queue 1, item 1)",
+    "compression": "top-k compression (queue 1, item 6)",
+    "compress_topk": "top-k compression (queue 1, item 6)",
+    "backend": "the wire transport (queue 1, item 2) and SPMD "
+               "(queue 1, item 3)",
 }
 
 
@@ -234,6 +238,20 @@ class TwoPhaseTransport(_SimTransport):
     Committee-member dropouts (``committee_dropout``) are tolerated by
     the Shamir scheme while the live members hold ``degree + 1``
     evaluation points (sub-threshold reconstruction).
+
+    Malicious security (Shamir only): with ``vss=True`` every party also
+    sends Feldman commitments to each member (``phase2_commit``), the
+    member rows are verified against the dealers' aggregate commitments
+    (``kernels.verify_shares``), and a member whose row fails is blamed,
+    evicted from later elections and left out of the reconstruction —
+    the mean is the honest one.  ``reelect_each_round`` re-runs Alg. 2
+    every round, without the evicted and with reputation weights.
+    ``norm_bound`` adds the per-dealer audit: every dealer's rows are
+    checked against its own commitments, its update is reconstructed,
+    and a dealer whose L2 norm exceeds the bound is blamed and dropped
+    from the mean (``phase2_audit``).  ``dealer_tamper`` injects the
+    dealer adversary, ``{party: (mode, round)}``; ``committee_tamper=``
+    of ``aggregate`` injects the member adversary, ``{member: mode}``.
     """
 
     protocol = "two_phase"
@@ -243,11 +261,51 @@ class TwoPhaseTransport(_SimTransport):
                  norm_bound: float | None = None,
                  dealer_tamper: dict | None = None,
                  cohort: int | None = None, **kw):
-        reject_later(vss=vss, reelect_each_round=reelect_each_round,
-                     norm_bound=norm_bound, dealer_tamper=dealer_tamper,
-                     cohort=cohort)
+        reject_later(cohort=cohort)
         super().__init__(n, **kw)
+        if vss and self.scheme != "shamir":
+            raise ValueError(
+                "verifiable secret sharing needs the Shamir scheme "
+                "(commitments verify polynomial evaluations); "
+                f"got scheme={self.scheme!r}")
+        if norm_bound is not None:
+            norm_bound = float(norm_bound)
+            if norm_bound <= 0:
+                raise ValueError(
+                    f"norm_bound must be positive, got {norm_bound}")
+            if not vss:
+                raise ValueError(
+                    "norm_bound needs vss=True — the dealer audit checks "
+                    "per-dealer rows against their commitments "
+                    "(DESIGN.md §11)")
+        self.norm_bound = norm_bound
+        self.dealer_tamper: dict[int, tuple[str, int]] = {}
+        for pid, (mode, rnd) in (dealer_tamper or {}).items():
+            if mode not in DEALER_TAMPER_MODES:
+                raise ValueError(
+                    f"unknown dealer tamper mode {mode!r}; expected one "
+                    f"of {DEALER_TAMPER_MODES}")
+            if mode == "malformed" and not vss:
+                raise ValueError(
+                    "dealer_tamper mode 'malformed' needs vss=True — "
+                    "without commitments a corrupted share stream is "
+                    "undetectable and the round would silently return "
+                    "garbage")
+            if not 0 <= int(pid) < n:
+                raise ValueError(
+                    f"dealer_tamper names out-of-range party {pid} "
+                    f"(valid ids are 0..{n - 1})")
+            self.dealer_tamper[int(pid)] = (str(mode), int(rnd))
+        self.vss = vss
+        self.reelect_each_round = reelect_each_round
         self.committee: tuple[int, ...] | None = None
+        #: members and dealers caught cheating (never eligible again)
+        self.evicted: set[int] = set()
+        #: per-party election weight (1.0 default; 0 when evicted, halved
+        #: per dropout under per-round re-election)
+        self.reputation: dict[int, float] = {}
+        self.last_outcome = None
+        self._elected_round: int | None = None
         self.agg = self._aggregator(self.m)
 
     @property
@@ -258,15 +316,19 @@ class TwoPhaseTransport(_SimTransport):
     # -- Phase I ----------------------------------------------------------
 
     def elect(self, round_index: int = 0) -> tuple[int, ...]:
-        """Alg. 2 with counted messages (P2P MPC on b-vectors)."""
+        """Alg. 2 with counted messages (P2P MPC on b-vectors), without
+        the evicted parties and weighted by reputation."""
         result = committee_mod.elect(self.n, self.m, self.b,
                                      self.seed + round_index,
+                                     exclude=self.evicted,
+                                     reputation=self.reputation or None,
                                      device=self.device)
         # each election round is one P2P additive MPC exchange of
         # b-element messages (shares + partial sums)
         self.net.send_batch(result.rounds * 2 * self.n * (self.n - 1),
                             self.b, "phase1")
         self.committee = result.committee
+        self._elected_round = round_index
         return result.committee
 
     # -- Phase II ---------------------------------------------------------
@@ -274,16 +336,26 @@ class TwoPhaseTransport(_SimTransport):
     def aggregate(self, flats, party_ids=None, *, round_index: int = 0,
                   committee_dropout: Sequence[int] = (),
                   committee_tamper: dict | None = None, eligible=None):
-        reject_later(committee_tamper=committee_tamper, eligible=eligible)
-        if self.committee is None:
+        reject_later(eligible=eligible)
+        if self.reelect_each_round and self._elected_round != round_index:
+            # per-round re-election: Alg. 2 again, without the evicted
+            # members and with reputation-weighted scores
             self.elect(round_index)
+        elif self.committee is None:
+            self.elect(round_index)
+        if committee_tamper and not self.vss:
+            raise ValueError(
+                "committee_tamper needs vss=True — without commitments "
+                "a tampered partial sum is undetectable and the round "
+                "would silently return garbage")
         flats = self._as_batch(flats)
         l, s = int(flats.shape[0]), int(flats.shape[1])
         ids = self._ids(party_ids, l)
         # the committee sums l encodings — same headroom bound as P2P
         self.agg.fp.validate_for_parties(l)
+        com = self.committee
         dropped = set(int(i) for i in committee_dropout)
-        live_pos = [w for w, member in enumerate(self.committee)
+        live_pos = [w for w, member in enumerate(com)
                     if member not in dropped]
         m_live = len(live_pos)
         # validate before touching the counters
@@ -297,19 +369,287 @@ class TwoPhaseTransport(_SimTransport):
                 raise ValueError(
                     f"only {m_live} committee members alive but Shamir "
                     f"degree {self.degree} needs {self.degree + 1} shares")
+        tamper = dict(committee_tamper or {})
+        bad_targets = set(tamper) - set(com) | (set(tamper) & dropped)
+        if bad_targets:
+            raise ValueError(
+                f"committee_tamper targets {sorted(bad_targets)} that "
+                f"are not live members of committee {com}")
 
+        # a poisoning dealer scales its update before encoding: its
+        # shares and commitments are honest ones of the poisoned value
+        flats = self._poison_flats(flats, ids, round_index)
         # 1) every live party uploads one share to each live member
         self.net.send_batch(l * m_live, s, "phase2_upload")
+        if self.vss:
+            # 1b) ... and its Feldman commitments, (degree+1) x 2 limbs
+            #     per element (costmodel.phase2_commit_*)
+            self.net.send_batch(l * m_live, (self.degree + 1) * 2 * s,
+                                "phase2_commit")
         # 2) members chain-exchange partial sums (m−1, Eq. 5 middle term)
         self.net.send_batch(m_live - 1, s, "phase2_exchange")
+        if self.norm_bound is not None:
+            # 2b) each non-final live member forwards its per-dealer
+            #     rows to the final member, one message of l·s elements
+            #     (costmodel.phase2_audit_*)
+            self.net.send_batch(m_live - 1, l * s, "phase2_audit")
         # 3) the committee broadcasts the aggregate to every party
         self.net.send_batch(self.n, s, "phase2_broadcast")
 
-        if m_live == self.m:
-            return self._secure_mean(self.agg, flats, ids, round_index)
+        if not self.vss:
+            self._finish_outcome(ids, dropped, set())
+            if m_live == self.m:
+                return self._secure_mean(self.agg, flats, ids, round_index)
+            points = tuple(w + 1 for w in live_pos)
+            return self._secure_mean(self.agg, flats, ids, round_index,
+                                     member_rows=live_pos, points=points)
+        return self._vss_aggregate(flats, ids, round_index, live_pos,
+                                   dropped, tamper)
+
+    def _poison_flats(self, flats, ids, round_index):
+        """The dealer adversary's ``scale``/``sign_flip``: one float32
+        multiply of each poisoned row (on a copy of ``flats``)."""
+        active = {p: mode for p, (mode, rnd) in self.dealer_tamper.items()
+                  if rnd == round_index and p in ids
+                  and mode in ("scale", "sign_flip")}
+        if not active:
+            return flats
+        flats = flats.clone()
+        row = {p: k for k, p in enumerate(ids)}
+        for p, mode in sorted(active.items()):
+            factor = POISON_SCALE if mode == "scale" else -POISON_SCALE
+            flats[row[p]] = flats[row[p]] * factor
+        return flats
+
+    # -- malicious-secure epilogue (verify -> blame -> reconstruct) -------
+
+    def _member_sums(self, flats, ids, round_index, d):
+        """Member sums ``[m, d]``, element-chunked on the §8 boundaries."""
+        chunk = self.chunk_elems if self.chunk_elems is not None else d
+        sums = [self.agg.sum_shares_batch(
+                    flats[:, e_lo:min(e_lo + chunk, d)], seed=self.seed,
+                    party_ids=ids, round_index=round_index,
+                    chunk=self.chunk, elem_base=e_lo)
+                for e_lo in range(0, d, chunk)]
+        return torch.cat(sums, dim=-1) if len(sums) > 1 else sums[0]
+
+    def _commit_words(self, elements):
+        """Group elements ``[...]`` -> commitment words ``[..., 2]`` in
+        the carrier of the transport's device."""
+        words = vss.pack(elements)
+        return (to_i32(words).contiguous() if self.device.type == "cuda"
+                else words)
+
+    def _dealer_commits(self, flats, keys, counter_base: int = 0):
+        """Each dealer's commitments as group elements ``[l, e,
+        degree+1]``: its coefficient streams re-derived from its key,
+        as the shares draw them."""
+        return vss.commit_elements(self.agg.encode(flats), keys[:, 0],
+                                   keys[:, 1], self.degree,
+                                   counter_base=counter_base)
+
+    def _aggregate_commits(self, flats, ids, round_index, e_lo, e_hi):
+        """Aggregate commitments ``[e_hi - e_lo, degree+1, 2]`` of
+        elements ``[e_lo, e_hi)``: the product over every dealer of its
+        commitments, built party chunk by party chunk as a running
+        product — what each member computes from the dealers'
+        messages."""
+        keys = self.agg.party_key_words(self.seed, ids, round_index)
+        acc = None
+        for lo in range(0, len(ids), self.chunk):
+            hi = min(lo + self.chunk, len(ids))
+            part = vss.product(self._dealer_commits(
+                flats[lo:hi, e_lo:e_hi], keys[lo:hi], e_lo // 4))
+            acc = part if acc is None else vss.qmul(acc, part)
+        return self._commit_words(acc)
+
+    def _tampered_rows(self, member_sums, flats, ids, round_index, d,
+                       tamper):
+        """Apply the injected member corruptions to their sum rows."""
+        com = self.committee
+        rows = member_sums.clone() if tamper else member_sums
+        for member, mode in tamper.items():
+            w = com.index(int(member))
+            if mode == "flip":
+                bad = rows[w] ^ TAMPER_FLIP_MASK
+            elif mode == "wrong_poly":
+                k0, k1 = philox.derive_key(
+                    self.seed ^ TAMPER_SEED_XOR,
+                    (round_index << 24) | int(member))
+                bad = words_like(to_field(philox.random_bits(
+                    d, k0, k1, device=self.device)), rows)
+            elif mode == "replay":
+                if round_index == 0:
+                    raise ValueError(
+                        "replay tamper needs a previous round (the "
+                        "member replays its round r-1 partial sum)")
+                bad = self._member_sums(flats, ids, round_index - 1, d)[w]
+            else:
+                raise ValueError(
+                    f"unknown tamper mode {mode!r}; expected "
+                    "flip | wrong_poly | replay")
+            rows[w] = bad
+        return rows
+
+    def _finish_outcome(self, ids, dropped, blamed,
+                        blamed_dealers=frozenset()):
+        """Fold the round's fault and blame sets through
+        ``resolve_outcome`` and update the eviction and reputation state
+        the next election reads."""
+        members = set(ids)
+        com_in = [w for w in self.committee if w in members]
+        self.last_outcome = resolve_outcome(
+            members, set(dropped) & members, set(),
+            committee=com_in,
+            reconstruct_threshold=(
+                self.degree + 1 if self.scheme == "shamir" else self.m)
+            if set(self.committee) <= members else None,
+            resurrect=False, blamed=blamed,
+            blamed_dealers=blamed_dealers)
+        for p in set(blamed) | set(blamed_dealers):
+            self.evicted.add(int(p))
+            self.reputation[int(p)] = 0.0
+        if self.reelect_each_round:
+            # reputation steers only the per-round re-election, so a
+            # single election keeps the exact integer scoring
+            for w in set(dropped):
+                self.reputation[int(w)] = \
+                    self.reputation.get(int(w), 1.0) * 0.5
+
+    def _verified_mean(self, live_rows, row_ok, live_pos, n_mean: int,
+                       ids, dropped, blamed_dealers=frozenset()):
+        """Blame the members whose rows failed, reconstruct the mean of
+        ``n_mean`` updates from the rows that verified."""
+        com = self.committee
+        blamed = {com[live_pos[i]] for i in range(len(live_pos))
+                  if not row_ok[i]}
+        good = [i for i in range(len(live_pos)) if row_ok[i]]
+        if len(good) < self.degree + 1:
+            raise ValueError(
+                f"only {len(good)} committee rows verified but Shamir "
+                f"degree {self.degree} needs {self.degree + 1}; blamed "
+                f"members: {sorted(blamed)}")
+        self._finish_outcome(ids, dropped, blamed,
+                             blamed_dealers=blamed_dealers)
+        points = (None if len(good) == self.m
+                  else tuple(live_pos[i] + 1 for i in good))
+        return self.agg.reconstruct_mean(live_rows[good], n_mean,
+                                         points=points)
+
+    def _vss_aggregate(self, flats, ids, round_index, live_pos, dropped,
+                       tamper):
+        """Verify member rows chunk by chunk, blame, reconstruct."""
+        malformed = sorted(
+            p for p, (mode, rnd) in self.dealer_tamper.items()
+            if mode == "malformed" and rnd == round_index and p in ids)
+        if self.norm_bound is not None or malformed:
+            return self._audited_vss_aggregate(
+                flats, ids, round_index, live_pos, dropped, tamper,
+                malformed)
+        l, d = int(flats.shape[0]), int(flats.shape[1])
+        with record_function("vss_member_sums"):
+            member_sums = self._member_sums(flats, ids, round_index, d)
+            rows = self._tampered_rows(member_sums, flats, ids,
+                                       round_index, d, tamper)
+            live_rows = rows[live_pos]
         points = tuple(w + 1 for w in live_pos)
-        return self._secure_mean(self.agg, flats, ids, round_index,
-                                 member_rows=live_pos, points=points)
+        # verification rides the §8 element chunks: each chunk's
+        # commitments draw the counters the chunk's shares drew
+        chunk = self.chunk_elems if self.chunk_elems is not None else d
+        row_ok = torch.ones(len(live_pos), dtype=torch.bool,
+                            device=self.device)
+        for e_lo in range(0, d, chunk):
+            e_hi = min(e_lo + chunk, d)
+            with record_function("vss_commit"):
+                agg_commits = self._aggregate_commits(flats, ids,
+                                                      round_index, e_lo,
+                                                      e_hi)
+            with record_function("vss_verify"):
+                ok = verify_shares(live_rows[:, e_lo:e_hi].contiguous(),
+                                   agg_commits, points)
+                row_ok &= ok.bool().all(dim=1)
+        return self._verified_mean(live_rows, row_ok.tolist(), live_pos,
+                                   l, ids, dropped)
+
+    def _audited_vss_aggregate(self, flats, ids, round_index, live_pos,
+                               dropped, tamper, malformed):
+        """The per-dealer epilogue of the norm audit (DESIGN.md §11).
+
+        1. Every dealer's live share rows are verified against its own
+           commitments; a mismatch is fatal (``ValueError``).
+        2. Each dealer's decoded update is reconstructed from the live
+           rows and its L2 norm held to ``norm_bound``; violators are
+           blamed (``blamed_dealers``) and left out of the member sums.
+        3. The member rows of the honest dealers' sums are verified
+           against their aggregate commitments, and the mean is
+           reconstructed over the honest count.
+
+        The member sums are order-independent modular adds, so an
+        all-honest audited round equals the un-audited one bit for bit.
+        """
+        l, d = int(flats.shape[0]), int(flats.shape[1])
+        k_live = len(live_pos)
+        points_live = tuple(w + 1 for w in live_pos)
+        with record_function("vss_member_sums"):
+            # whole-vector per-dealer stacks [l, m, d]
+            stacks = self.agg.make_shares_batch(
+                flats, seed=self.seed, party_ids=ids,
+                round_index=round_index)
+            row = {p: k for k, p in enumerate(ids)}
+            for p in malformed:
+                # a malformed dealer corrupts its share stream while
+                # sending honest commitments
+                stacks[row[p]] ^= TAMPER_FLIP_MASK
+        with record_function("vss_commit"):
+            keys = self.agg.party_key_words(self.seed, ids, round_index)
+            commits = self._dealer_commits(flats, keys)    # [l, d, c]
+
+        # 1) per-dealer verification: the dealers' rows side by side on
+        #    the element axis, one kernel launch
+        sel = stacks[:, live_pos, :]                           # [l, k, d]
+        with record_function("vss_verify"):
+            ok = verify_shares(
+                sel.transpose(0, 1).reshape(k_live, l * d).contiguous(),
+                self._commit_words(commits).reshape(l * d,
+                                                    self.degree + 1, 2),
+                points_live)
+            dealer_ok = ok.reshape(k_live, l, d).bool().all(dim=2) \
+                .all(dim=0).tolist()
+        bad = sorted(ids[k] for k in range(l) if not dealer_ok[k])
+        if bad:
+            raise ValueError(
+                f"dealer share verification failed for parties {bad} — "
+                "shares do not match the dealer's own commitments")
+
+        # 2) norm-bound audit of the decoded per-dealer updates
+        blamed_dealers: set[int] = set()
+        if self.norm_bound is not None:
+            pts = None if k_live == self.m else points_live
+            codes = self.agg.reconstruct_sum(sel.transpose(0, 1),
+                                             points=pts)       # [l, d]
+            decoded = self.agg.fp.decode_mean(codes, 1).cpu().numpy()
+            blamed_dealers = {ids[k] for k in range(l)
+                              if update_norm(decoded[k]) > self.norm_bound}
+        honest = [k for k in range(l) if ids[k] not in blamed_dealers]
+        if not honest:
+            raise ValueError(
+                f"the norm audit blamed every dealer {sorted(ids)} — "
+                "no honest update left to aggregate")
+
+        # 3) member-row verification of the honest dealers' sums
+        with record_function("vss_member_sums"):
+            member_sums = self.agg.reduce_party_shares(stacks[honest])
+            rows = self._tampered_rows(member_sums, flats, ids,
+                                       round_index, d, tamper)
+            live_rows = rows[live_pos]
+        with record_function("vss_commit"):
+            agg_commits = self._commit_words(vss.product(commits[honest]))
+        with record_function("vss_verify"):
+            row_ok = verify_shares(live_rows, agg_commits, points_live) \
+                .bool().all(dim=1).tolist()
+        return self._verified_mean(live_rows, row_ok, live_pos,
+                                   len(honest), ids, dropped,
+                                   blamed_dealers=blamed_dealers)
 
 
 SIM_TRANSPORTS = {

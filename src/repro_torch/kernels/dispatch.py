@@ -57,6 +57,9 @@ _SIGNATURES = {
     "repro_shamir_reconstruct": (_P, _P, _P, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_float,
                                  ctypes.c_float, _P),
+    # rows, commits, points, out, k, d, c, stream
+    "repro_verify_shares": (_P, _P, _P, _P, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, _P),
 }
 
 #: Launches per kernel since the last ``reset_launches`` — a wrapper adds
@@ -103,6 +106,14 @@ def on_cpu(*tensors) -> bool:
     raise ValueError(
         f"kernel inputs must all lie on the CPU or all on one CUDA "
         f"device, got {sorted(str(t.device) for t in tensors)}")
+
+
+@functools.lru_cache(maxsize=128)
+def device_ints(values: tuple[int, ...], device: torch.device):
+    """Small host ints (below 2^31) as an ``int32`` tensor on the card,
+    copied once per tuple: a copy from host memory waits for the card to
+    finish its queue."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def _source_files() -> list[Path]:

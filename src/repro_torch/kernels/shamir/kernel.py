@@ -8,8 +8,6 @@ bounds them on the H100 and how their design answers that.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.core.field import U32_MASK
@@ -35,18 +33,12 @@ def shamir_share_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def _device_weights(weights: tuple[int, ...], device: torch.device):
-    """The Lagrange weights on the card, copied once per point set: a
-    copy from host memory waits for the card to finish its queue."""
-    return torch.tensor(weights, dtype=torch.int32, device=device)
-
-
 def shamir_reconstruct_cuda(member_sums: torch.Tensor, weights, n: int,
                             cfg: FixedPointConfig):
     """int32 ``[k, D]`` + host weights -> float32 ``[D]``."""
     k, d = member_sums.shape
-    w = _device_weights(tuple(int(x) for x in weights), member_sums.device)
+    w = dispatch.device_ints(tuple(int(x) for x in weights),
+                             member_sums.device)
     out = torch.empty((d,), dtype=torch.float32, device=member_sums.device)
     if d:
         dispatch.launch(RECONSTRUCT_NAME, member_sums.data_ptr(),

@@ -95,8 +95,9 @@ def test_entry_points_default_to_the_card(name):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(vss=True), dict(cohort=3), dict(reelect_each_round=True),
-    dict(compress_topk=0.1), dict(backend="wire"), dict(norm_bound=1.0),
+    dict(vss=True, cohort=3), dict(cohort=3),
+    dict(reelect_each_round=True, cohort=3), dict(compress_topk=0.1),
+    dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
 ])
 def test_later_slice_knobs_raise_not_implemented(knob):
     from repro_torch.fl import FedAvgConfig
@@ -109,5 +110,22 @@ def test_later_slice_transport_options_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="wire"):
         make_transport("two_phase", 4, backend="spmd", device="cpu")
     tr = make_transport("two_phase", 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="malicious"):
-        tr.aggregate(torch.zeros(4, 8), committee_tamper={0: "flip"})
+    with pytest.raises(NotImplementedError, match="cohort slice"):
+        tr.aggregate(torch.zeros(4, 8), eligible={0, 1, 2})
+    with pytest.raises(NotImplementedError, match="cohort slice"):
+        make_transport("two_phase", 4, scheme="shamir", vss=True, cohort=3,
+                       device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(vss=True), dict(reelect_each_round=True),
+    dict(vss=True, norm_bound=1.0),
+    dict(vss=True, dealer_tamper={0: ("scale", 0)}),
+])
+def test_malicious_security_knobs_are_ported(knob):
+    from repro_torch.fl import FedAvgConfig, FLSimulation
+    cfg = FedAvgConfig(n_parties=4, scheme="shamir", **knob)
+    sim = FLSimulation(4, scheme="shamir", device="cpu", **knob)
+    tr = sim.transports["two_phase"]
+    assert tr.vss == cfg.vss
+    assert tr.reelect_each_round == cfg.reelect_each_round

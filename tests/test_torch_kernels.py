@@ -29,6 +29,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.reconstruct import reconstruct
 from repro_torch.kernels.shamir import shamir_reconstruct, shamir_share_batch
 from repro_torch.kernels.share_gen import share_gen_batch
+from repro_torch.kernels.verify_shares import verify_shares
 
 P = 0x7FFFFFFF
 # (mode, parties, elements, element offset): the plain path at a ragged
@@ -140,9 +141,12 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     reconstruct(shares.sum(0) & 0xFFFFFFFF, 2, TFP())
     fshares = shamir_share_batch(x, 3, keys, TFP(algebra="field"))
     shamir_reconstruct(fshares.sum(0) % P, 2, TFP(algebra="field"))
+    verify_shares(fshares[0], torch.ones((64, 1, 2), dtype=torch.int64),
+                  (1, 2, 3))
     assert set(dispatch.launches) == {
         "repro_share_gen_batch", "repro_shamir_share_batch",
-        "repro_reconstruct", "repro_shamir_reconstruct"}
+        "repro_reconstruct", "repro_shamir_reconstruct",
+        "repro_verify_shares"}
     assert all(v == 0 for v in dispatch.launches.values())
 
 
