@@ -33,7 +33,30 @@ non-zero without the final result line):
 7. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
 8. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-9. summary: a ``{"kernels": [...]}`` line, then the result line.
+9. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
+   path's share kernels) against their plain versions, ``torch.equal``,
+   at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
+   and at a ragged D = 10,001 with ``hi_base`` 192, with times and
+   bounds;
+10. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
+    backend rule picks gloo; ``reduce_scatter`` and ``all_gather`` stage
+    through host memory): every mode and scheme of
+    ``fl.spmd.secure_aggregate``, each rank's mean bit-identical to the
+    others and, in the secure modes, to the same aggregation composed
+    from the plain versions on the card; then two train steps of the
+    smoke config, with identical parameters on every rank;
+11. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
+    at full width and depth, a world of one, global batch 8 x seq 128,
+    four steps each of ``plain``, ``two_phase`` additive and
+    ``two_phase`` Shamir: every step's aggregated gradient, leaf by leaf,
+    bit-identical to decode(encode(g)) composed from the plain versions
+    on the card; 14 launches of the scheme's share and reconstruct
+    kernels per secure step; loss, step wall time and tok/s per step
+    (the check's time taken out: the trainer's own "tok/s" lines count
+    it), then one profiled step split into its ``fwd_bwd``,
+    ``secure_aggregate`` and ``adamw_update`` ranges and one unchecked
+    step with its peak device memory;
+12. summary: a ``{"kernels": [...]}`` line, then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
@@ -140,6 +163,17 @@ def phase_build() -> None:
              or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": info["built"], "ptxas": ptxas})
+    # ptxas prints a kernel's stack line after its "entry function" line:
+    # the single-party kernels must keep everything in registers
+    lines = info["log"].splitlines()
+    for kernel in ("share_gen_kernel", "shamir_share_kernel"):
+        at = [i for i, ln in enumerate(lines)
+              if "entry function" in ln and f"{kernel}E" in ln]
+        require(len(at) == 1, f"ptxas printed no entry for {kernel}")
+        frame = next((ln for ln in lines[at[0] + 1:]
+                      if "stack frame" in ln), "")
+        require(frame.strip().startswith("0 bytes stack frame"),
+                f"{kernel} uses a stack frame: {frame.strip()!r}")
 
 
 def _bits(t):
@@ -748,6 +782,361 @@ def phase_fedavg() -> None:
           "msg_num": res.msg_num, "msg_size": res.msg_size})
 
 
+def phase_single_kernels() -> dict:
+    """The single-party share kernels against their plain versions at the
+    train path's largest leaf and at a ragged shape; returns timing
+    rows."""
+    import torch
+    from repro_torch.core.fixed_point import DEFAULT_FIELD, DEFAULT_RING
+    from repro_torch.core.field import to_i32
+    from repro_torch.kernels.shamir import shamir_share, shamir_share_ref
+    from repro_torch.kernels.share_gen import share_gen, share_gen_ref
+    m, deg, keys = 3, 2, (0x1234567, 0xABCDEF01)
+    rows = {}
+    for d, hi_base in ((10_001, 192), (155_582_464, 0)):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        x = torch.randn(d, device="cuda", generator=gen) * 0.01
+        x[:5] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                              0.5 / 65536, 1.5 / 65536])
+        quads = -(-d // 4)
+        for name, fn, ref, fp, ops in (
+                ("share_gen", share_gen, share_gen_ref, DEFAULT_RING,
+                 quads * (m - 1) * PHILOX_OPS + d * (m - 1)),
+                ("shamir_share", shamir_share, shamir_share_ref,
+                 DEFAULT_FIELD,
+                 quads * deg * PHILOX_OPS
+                 + d * (deg * TO_FIELD_OPS
+                        + m * deg * (FIELD_MUL_OPS + FIELD_ADD_OPS)))):
+            got = fn(x, m, *keys, fp, hi_base=hi_base)
+            want = to_i32(ref(x, m, *keys, fp, hi_base=hi_base))
+            same = torch.equal(got, want)
+            err = float((got.to(torch.int64) & 0xFFFFFFFF)
+                        .sub(want.to(torch.int64) & 0xFFFFFFFF)
+                        .abs().max())
+            require(same, f"{name}: kernel differs from its plain version "
+                          f"at D={d} hi_base={hi_base} (max abs err {err})")
+            del got, want
+            entry = {"phase": "kernel", "name": name, "d": d, "m": m,
+                     "hi_base": hi_base, "equal": True, "max_abs_err": err}
+            if d > 10_001:
+                b_ms, b_by = bound(4 * d + 4 * m * d, ops)
+                entry.update(
+                    ms=cuda_ms(lambda: fn(x, m, *keys, fp, hi_base=hi_base),
+                               20),
+                    plain_ms=cuda_ms(
+                        lambda: ref(x, m, *keys, fp, hi_base=hi_base), 3),
+                    bound_ms=b_ms, bound_by=b_by)
+                rows[name] = entry
+            emit(entry)
+        del x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_spmd_mean(flats, scheme: str, m: int, seed: int,
+                    round_index: int):
+    """The SPMD mean of the parties' ``flats`` (one tensor per party),
+    composed from the plain versions: party ``p`` shares with the party
+    keys of ``hi_base = 64·p``, the words are summed in the ring or the
+    field, and the sum is decoded as the reference's jitted decode does
+    at n parties."""
+    from repro_torch.core.field import U32_MASK, fadd
+    from repro_torch.core.fixed_point import DEFAULT_FIELD, DEFAULT_RING
+    from repro_torch.fl import spmd
+    from repro_torch.kernels.reconstruct import reconstruct_ref
+    from repro_torch.kernels.shamir import (shamir_reconstruct_ref,
+                                            shamir_share_ref)
+    from repro_torch.kernels.share_gen import share_gen_ref
+    n = len(flats)
+    k0, k1 = spmd.round_keys(seed, round_index)
+    additive = scheme == "additive"
+    fp = DEFAULT_RING if additive else DEFAULT_FIELD
+    acc = None
+    for p, flat in enumerate(flats):
+        keys = spmd.party_keys(k0, k1, (64 * p) & U32_MASK)
+        if additive:
+            s = share_gen_ref(flat, m, *keys, fp)
+            acc = s if acc is None else (acc + s) & U32_MASK
+        else:
+            s = shamir_share_ref(flat, m, *keys, fp)
+            acc = s if acc is None else fadd(acc, s)
+    inv = spmd.decode_inv_scale(fp, n)
+    return (reconstruct_ref(acc, 1, fp, inv_scale=inv) if additive
+            else shamir_reconstruct_ref(acc, 1, fp, inv_scale=inv))
+
+
+SPMD_CASES = [("additive", "psum"), ("additive", "reduce_scatter"),
+              ("additive", "p2p"), ("additive", "plain"),
+              ("shamir", "psum")]
+SPMD_D, SPMD_SEED, SPMD_ROUND = 1_000_003, 5, 1
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _spmd_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One party of the spmd phase (a process of its own)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import choose_backend
+    backend = choose_backend(world, "cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {"backend": backend, **_spmd_checks(rank, world)}
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spmd_checks(rank: int, world: int) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.data import lm_batch
+    from repro_torch.fl import spmd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    flats = torch.from_numpy((np.random.RandomState(7).randn(
+        world, SPMD_D) * 0.1).astype(np.float32)).cuda()
+    out = {"staged": spmd.host_staged(flats, None), "cases": {}}
+    for scheme, mode in SPMD_CASES:
+        t0 = time.perf_counter()
+        mean = spmd.secure_aggregate(flats[rank], scheme=scheme, m=3,
+                                     seed=SPMD_SEED, round_index=SPMD_ROUND,
+                                     mode=mode)
+        torch.cuda.synchronize()
+        entry = {"wall_s": time.perf_counter() - t0, "sha": _sha(mean),
+                 "finite": bool(torch.isfinite(mean).all())}
+        if mode != "plain":
+            want = plain_spmd_mean(list(flats), scheme,
+                                   world if mode == "p2p" else 3,
+                                   SPMD_SEED, SPMD_ROUND)
+            entry["equal_to_plain"] = torch.equal(mean.view(torch.int32),
+                                                  want.view(torch.int32))
+        out["cases"][f"{scheme}_{mode}"] = entry
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    model = transformer.init(cfg, seed=0, device="cuda")
+    opt = adamw_init(model.params())
+    step = make_train_step(cfg, device="cuda")
+    losses = []
+    for i in range(2):
+        toks, labels = lm_batch(cfg.vocab, 8, 16, seed=0, party=0, step=i)
+        model, opt, loss = step(model, opt, i,
+                                {"tokens": toks, "labels": labels})
+        losses.append(float(loss))
+    leaves = [leaf.detach().reshape(-1) for _, leaf in
+              flatten_with_path(model.params())]
+    out["train_losses"] = losses
+    out["params_sha"] = _sha(torch.cat(leaves))
+    return out
+
+
+def phase_spmd() -> None:
+    """Four gloo ranks on the one card; see the module docstring."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    world = 4
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    from repro_torch.kernels import dispatch
+    # the ranks' results go to a directory inside the checkout (the
+    # kernels' build directory, listed in .gitignore)
+    dispatch.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=dispatch.BUILD_ROOT) as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(_spmd_rank, args=(world, port, out_dir), nprocs=world,
+                 join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    require(all(r["backend"] == "gloo" for r in ranks),
+            f"ranks sharing one card chose {ranks[0]['backend']}")
+    require(all(r["staged"] for r in ranks),
+            "gloo with CUDA tensors must stage reduce_scatter/all_gather")
+    for key in ranks[0]["cases"]:
+        entries = [r["cases"][key] for r in ranks]
+        require(len({e["sha"] for e in entries}) == 1,
+                f"spmd {key}: the ranks' means differ")
+        require(all(e["finite"] for e in entries),
+                f"spmd {key}: a mean is not finite")
+        if not key.endswith("plain"):
+            require(all(e["equal_to_plain"] for e in entries),
+                    f"spmd {key}: a mean differs from the plain composition")
+        emit({"phase": "spmd", "case": key, "ranks": world, "d": SPMD_D,
+              "backend": "gloo",
+              "collectives": ("all_reduce on the card's tensors; "
+                              "reduce_scatter and all_gather staged through "
+                              "host memory"),
+              "identical_on_every_rank": True,
+              "equal_to_plain": None if key.endswith("plain") else True,
+              "wall_s_per_rank": [e["wall_s"] for e in entries]})
+    require(len({r["params_sha"] for r in ranks}) == 1,
+            "spmd train: the ranks' parameters differ after two steps")
+    require(all(np.isfinite(r["train_losses"]).all() for r in ranks),
+            "spmd train: a loss is not finite")
+    emit({"phase": "spmd_train", "ranks": world, "steps": 2,
+          "arch": "qwen1.5-0.5b smoke", "losses": ranks[0]["train_losses"],
+          "params_identical_on_every_rank": True, "wall_s": wall})
+
+
+def _profile_step(step_fn, model, opt, step_idx: int, batch) -> dict:
+    """One step under ``torch.profiler``: per range of the step its host
+    time and its span on the card, the device time by kernel, and the
+    wall time under the trace.  (Backward runs on autograd's own thread,
+    outside the host-side ``fwd_bwd`` range; the span on the card covers
+    it.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    labels = ("fwd_bwd", "secure_aggregate", "adamw_update")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(model, opt, step_idx, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    span = {label: sum(e.self_device_time_total for e in avg
+                       if e.key == label
+                       and e.device_type == DeviceType.CUDA) / 1e3
+            for label in labels}
+    host = {label: sum(e.cpu_time_total for e in avg if e.key == label
+                       and e.device_type == DeviceType.CPU) / 1e3
+            for label in labels}
+    # kernel rows only (a range's row on the card is its span)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in avg if e.device_type == DeviceType.CUDA
+                      and e.key not in labels
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    require(kernels, "train: the trace shows no kernel on the card")
+    busy = sum(k[1] for k in kernels)
+    ours = {name: sum(t for k, t, _ in kernels if name in k)
+            for name in ("share_gen_kernel", "shamir_share_kernel",
+                         "reconstruct_kernel")}
+    return {"wall_ms_traced": wall_ms, "host_ms_by_range": host,
+            "device_span_ms_by_range": span, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "aggregation_kernels_ms": ours,
+            "secure_aggregate_host_share": host["secure_aggregate"] / wall_ms,
+            "secure_aggregate_span_share": span["secure_aggregate"] / wall_ms,
+            "top": [{"kernel": k[:90], "ms": t, "calls": c}
+                    for k, t, c in kernels[:8]]}
+
+
+def phase_train() -> dict:
+    """The federated LM trainer on qwen1.5-0.5b at full size; returns the
+    launches of the secure runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.data import lm_batch
+    from repro_torch.fl import spmd
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    steps, batch, seq, seed = 4, 8, 128, 0
+    vocab = get_config("qwen1.5-0.5b").vocab
+    launches = {}
+    for protocol, scheme in (("plain", "additive"), ("two_phase", "additive"),
+                             ("two_phase", "shamir")):
+        check_s = []
+
+        def observe(grads, agg, protocol=protocol, scheme=scheme,
+                    check_s=check_s):
+            # the step's aggregate against decode(encode(g)) composed
+            # from the plain versions on the card, leaf by leaf
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_idx = len(check_s)
+            got = dict(flatten_with_path(agg))
+            for path, g in flatten_with_path(grads):
+                flat = g.detach().reshape(-1).float()
+                if protocol == "plain":
+                    want = flat / 1
+                else:
+                    leaf_seed = (seed ^ spmd.leaf_seed_tag(path)) \
+                        & 0x7FFFFFFF
+                    want = plain_spmd_mean([flat], scheme, 3, leaf_seed,
+                                           step_idx)
+                require(torch.equal(got[path].reshape(-1).view(torch.int32),
+                                    want.view(torch.int32)),
+                        f"train {protocol}/{scheme} step {step_idx}: leaf "
+                        f"{path} differs from the plain composition")
+                del want
+            torch.cuda.synchronize()
+            check_s.append(time.perf_counter() - t0)
+
+        args = train.parse_args(
+            ["--arch", "qwen1.5-0.5b", "--steps", str(steps), "--batch",
+             str(batch), "--seq", str(seq), "--protocol", protocol,
+             "--scheme", scheme, "--seed", str(seed), "--log-every", "1"])
+        torch.cuda.empty_cache()
+        dispatch.reset_launches()
+        out = train.run(args, observe=observe)
+        counts = dict(dispatch.launches)
+        require(len(check_s) == steps,
+                f"train {protocol}/{scheme}: {len(check_s)} steps checked")
+        require(all(math.isfinite(x) for x in out["losses"]),
+                f"train {protocol}/{scheme}: losses {out['losses']}")
+        share_k, rec_k = (("repro_share_gen", "repro_reconstruct")
+                          if scheme == "additive" else
+                          ("repro_shamir_share", "repro_shamir_reconstruct"))
+        per_step = 0 if protocol == "plain" else 14
+        require(counts[share_k] == per_step * steps
+                and counts[rec_k] == per_step * steps
+                and sum(counts.values()) == 2 * per_step * steps,
+                f"train {protocol}/{scheme}: kernel launches {counts}")
+        if per_step:
+            for k in (share_k, rec_k):
+                launches[k] = launches.get(k, 0) + counts[k]
+        lines = [{"step": i, "loss": loss,
+                  # the step's host wall without the check above
+                  "step_wall_s": wall - chk,
+                  "tok_per_s": batch * seq / (wall - chk)}
+                 for i, (loss, wall, chk) in enumerate(
+                     zip(out["losses"], out["step_wall_s"], check_s))]
+        # two more steps without the check: one profiled, one timed alone
+        # with the peak device memory of a step
+        step_fn = out["step_fn"]
+        step_fn.observe = None
+        model, opt = out["model"], out["opt_state"]
+        del out
+        batches = [lm_batch(vocab, batch, seq, seed=seed, party=0, step=i)
+                   for i in (steps, steps + 1)]
+        prof = _profile_step(step_fn, model, opt, steps,
+                             dict(zip(("tokens", "labels"), batches[0])))
+        torch.cuda.reset_peak_memory_stats()
+        wall, (_, _, loss) = _timed(lambda: step_fn(
+            model, opt, steps + 1, dict(zip(("tokens", "labels"),
+                                            batches[1]))))
+        emit({"phase": "train", "arch": "qwen1.5-0.5b", "protocol": protocol,
+              "scheme": scheme, "parties": 1, "batch": batch, "seq": seq,
+              "steps": lines, "launches": {k: v for k, v in counts.items()
+                                           if v},
+              "aggregate_equal_to_plain_composition": True,
+              "check_wall_s": sum(check_s),
+              "unchecked_step": {"step": steps + 1, "loss": float(loss),
+                                 "wall_s": wall,
+                                 "tok_per_s": batch * seq / wall,
+                                 "peak_mem_bytes":
+                                     torch.cuda.max_memory_allocated()},
+              "profiled_step": prof})
+        del model, opt, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -764,6 +1153,12 @@ KERNELS = [
     ("verify_shares", "repro_verify_shares",
      "src/repro_torch/kernels/csrc/verify_shares.cu",
      "src/repro/kernels/verify_shares/kernel.py:43"),
+    ("share_gen", "repro_share_gen",
+     "src/repro_torch/kernels/csrc/share_gen.cu",
+     "src/repro/kernels/share_gen/kernel.py:89"),
+    ("shamir_share", "repro_shamir_share",
+     "src/repro_torch/kernels/csrc/shamir.cu",
+     "src/repro/kernels/shamir/kernel.py:68"),
 ]
 
 
@@ -819,6 +1214,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_streaming()
     phase_fedavg()
+    rows.update(phase_single_kernels())
+    phase_spmd()
+    # the train path also decodes through the slice-1 reconstructions:
+    # their launches are the rounds' and the train steps' together
+    for key, count in phase_train().items():
+        launches[key] = launches.get(key, 0) + count
 
     kernels = []
     for name, key, source, replaces in KERNELS:

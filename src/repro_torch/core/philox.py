@@ -21,7 +21,7 @@ PHILOX_W1 = 0xBB67AE85
 _N_ROUNDS = 10
 
 #: key of the one Philox call that whitens (seed, stream) into a key
-_DERIVE_KEY = (0x243F6A88, 0x85A308D3)
+DERIVE_KEY = (0x243F6A88, 0x85A308D3)
 
 
 def philox_4x32_tuple(x0, x1, x2, x3, key0, key1):
@@ -50,14 +50,20 @@ def philox_4x32(counters, key0, key1):
 
 
 def random_bits(n: int, key0, key1, counter_hi=0, counter_base=0,
-                device=None):
+                device=None, layout: str = "flat"):
     """``n`` words of the keyed stream, per key.
 
     The counter of block ``c`` is ``(counter_base + c, 0, counter_hi, 0)``
     (mod 2^32), word ``i`` is word ``i % 4`` of block ``i // 4`` — the
-    reference's layout.  ``key0``/``key1`` may be ints or ``int64``
+    reference's layout.  ``layout="tiled"`` moves ``counter_hi`` to the
+    second counter word, ``(counter_base + c, counter_hi, 0, 0)``: the
+    stream of the reference's single-party kernels
+    (``philox.tiled_words``, whose lane-tiled ``[R, 128]`` view is this
+    flat stream row by row).  ``key0``/``key1`` may be ints or ``int64``
     tensors of one shape ``B``; the result is ``[*B, n]``.
     """
+    if layout not in ("flat", "tiled"):
+        raise ValueError(f"unknown counter layout {layout!r}")
     k0 = u32(key0)
     k1 = u32(key1)
     if device is None:
@@ -68,7 +74,11 @@ def random_bits(n: int, key0, key1, counter_hi=0, counter_base=0,
     c = (torch.arange(n_blocks, dtype=torch.int64, device=device)
          + int(counter_base)) & U32_MASK
     zero = torch.zeros_like(c)
-    y = philox_4x32_tuple(c, zero, int(counter_hi) & U32_MASK, zero, k0, k1)
+    hi = int(counter_hi) & U32_MASK
+    if layout == "flat":
+        y = philox_4x32_tuple(c, zero, hi, zero, k0, k1)
+    else:
+        y = philox_4x32_tuple(c, hi, zero, zero, k0, k1)
     y = [w.expand(*torch.broadcast_shapes(k0.shape, c.shape)) for w in y]
     return torch.stack(y, dim=-1).flatten(-2)[..., :n]
 
@@ -111,7 +121,7 @@ def derive_key(seed, stream):
     # 0-d host tensors broadcast against tensors of any device
     parts = [p if p.ndim == 0 else p.to(device) for p in parts]
     shape = torch.broadcast_shapes(*(p.shape for p in parts))
-    w0, w1, _, _ = philox_4x32_tuple(*parts, *_DERIVE_KEY)
+    w0, w1, _, _ = philox_4x32_tuple(*parts, *DERIVE_KEY)
     return w0.expand(shape), w1.expand(shape)
 
 

@@ -1,0 +1,59 @@
+"""Nested dicts of tensors, walked as the reference walks its pytrees.
+
+The reference keeps parameters, gradients and optimizer moments as JAX
+pytrees of dicts; the port keeps them as nested ``dict``s (and
+``nn.Module``s whose parameters are registered under the same keys).
+``flatten_with_path`` visits the leaves in JAX's order (dict keys
+sorted at every level), and ``path_str`` spells a path the way
+``"/".join(str(k) for k in path)`` spells a JAX key path
+(``['layers']/['b0_attn']/['attn']/['wq']``), which is what the per-leaf
+seeds of the secure aggregation hash.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def flatten_with_path(tree) -> list[tuple[tuple[str, ...], Any]]:
+    """``[(path, leaf), ...]`` with dict keys sorted at every level."""
+    out = []
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], prefix + (k,))
+        else:
+            out.append((prefix, node))
+
+    walk(tree, ())
+    return out
+
+
+def leaves(tree) -> list:
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def unflatten(paths, values) -> dict:
+    """The nested dict with ``values`` at ``paths``."""
+    out: dict = {}
+    for path, value in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure)."""
+    flat = flatten_with_path(tree)
+    others = [dict(flatten_with_path(t)) for t in rest]
+    return unflatten([p for p, _ in flat],
+                     [fn(leaf, *(o[p] for o in others)) for p, leaf in flat])
+
+
+def path_str(path) -> str:
+    """A key path as the reference prints a JAX key path."""
+    return "/".join(f"[{k!r}]" for k in path)

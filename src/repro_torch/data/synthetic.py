@@ -1,15 +1,31 @@
-"""The paper's motor-fault tabular task (§IV-A), as numpy.
+"""Synthetic data as numpy: LM token batches and the paper's motor-fault
+tabular task (§IV-A).
 
-A copy of ``fault_detection_party`` and ``train_test_split`` from
-``repro/data/synthetic.py``: 121 time-domain features, binary
-healthy/faulty labels, a party-specific fault signature (non-IID) plus a
-shared one, so federation helps.  The same seeds give the same arrays
-as the reference.
+Copies of ``lm_batch``, ``fault_detection_party`` and
+``train_test_split`` from ``repro/data/synthetic.py``.  The LM stream is
+a per-party unigram tilt, reproducible from (seed, party, step).  The
+fault task has 121 time-domain features, binary healthy/faulty labels,
+a party-specific fault signature (non-IID) plus a shared one, so
+federation helps.  The same seeds give the same arrays as the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def lm_batch(vocab: int, batch: int, seq: int, *, seed: int, party: int,
+             step: int):
+    """Deterministic non-IID token batch: (tokens, labels) int32 [B, S]."""
+    rng = np.random.RandomState(
+        (seed * 1_000_003 + party * 7919 + step) % (2 ** 31 - 1))
+    # party-specific unigram tilt over a smallish support to keep losses
+    # learnable at smoke scale
+    support = min(vocab, 64)
+    logits = rng.randn(support) * 1.5
+    probs = np.exp(logits) / np.exp(logits).sum()
+    toks = rng.choice(support, size=(batch, seq + 1), p=probs)
+    return (toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32))
 
 
 def fault_detection_party(n_samples: int, *, seed: int, party: int,

@@ -2,10 +2,12 @@ from .faults import RoundOutcome, apply_faults, quorum_met, resolve_outcome
 from .rounds import FedAvgConfig, FedAvgResult, run_fedavg
 from .simulation import FLSimulation, UnknownPartyError
 from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
-                        Transport, TwoPhaseTransport, make_transport)
+                        SPMDTransport, Transport, TwoPhaseTransport,
+                        make_transport)
 
 __all__ = ["FLSimulation", "Network", "PhaseStats", "FedAvgConfig",
            "FedAvgResult", "run_fedavg", "RoundOutcome", "apply_faults",
            "quorum_met", "resolve_outcome", "Transport", "P2PTransport",
+           "SPMDTransport",
            "TwoPhaseTransport", "PlainTransport", "make_transport",
            "UnknownPartyError"]

@@ -36,31 +36,30 @@ from .faults import (DEALER_TAMPER_MODES, POISON_SCALE, TAMPER_FLIP_MASK,
                      TAMPER_SEED_XOR, resolve_outcome, update_norm)
 
 __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
-           "Transport", "TwoPhaseTransport", "make_transport",
-           "reject_later"]
+           "SPMDTransport", "Transport", "TwoPhaseTransport",
+           "make_transport", "reject_later"]
 
 #: Knobs of the reference that later slices of the port carry over
 #: (ROADMAP.md, queue 1), and the slice each belongs to.
 LATER_SLICES = {
-    "cohort": "the cohort slice (queue 1, item 1)",
-    "eligible": "the cohort slice (queue 1, item 1)",
+    "cohort": "the cohort slice (queue 1, item 7)",
+    "eligible": "the cohort slice (queue 1, item 7)",
     "agg_kwargs": "the typed experiment API of the cohort slice "
-                  "(queue 1, item 1)",
+                  "(queue 1, item 7)",
     "compression": "top-k compression (queue 1, item 6)",
     "compress_topk": "top-k compression (queue 1, item 6)",
-    "backend": "the wire transport (queue 1, item 2) and SPMD "
-               "(queue 1, item 3)",
+    "backend": "the wire transport (queue 1, item 8)",
 }
 
 
 def reject_later(**knobs) -> None:
     """Raise ``NotImplementedError`` for a later-slice knob that is set.
 
-    A knob at its default (``None``, ``False``, empty, or
-    ``backend="sim"``) passes.
+    A knob at its default (``None``, ``False``, empty, or a ported
+    ``backend``: ``"sim"``, ``"spmd"``) passes.
     """
     for name, value in knobs.items():
-        if name == "backend" and value == "sim":
+        if name == "backend" and value in ("sim", "spmd"):
             continue
         if value is None or value is False or (
                 isinstance(value, (dict, tuple, list, set))
@@ -659,10 +658,94 @@ SIM_TRANSPORTS = {
 }
 
 
+class SPMDTransport(Transport):
+    """Adapter: the same protocol steps as collectives over a process
+    group (``fl.spmd``, the scale path).
+
+    Every party runs this object in its own process; ``aggregate`` takes
+    the local party's flat update and returns the mean on every party.
+
+      ================= ================== ===============================
+      protocol          ``fl.spmd`` mode   what crosses between parties
+      ================= ================== ===============================
+      two_phase         ``psum``           the m-share stack, all-reduced
+      two_phase_scatter ``reduce_scatter`` shares reduce-scattered, means
+                                           all-gathered
+      p2p               ``p2p``            n shares per party (m = n)
+      plain             ``plain``          raw float all-reduce (no MPC)
+      ================= ================== ===============================
+
+    ``group`` replaces the reference's ``party_axes``; updates are moved
+    to ``device`` (the card unless ``device="cpu"``).
+    """
+
+    MODE_FOR_PROTOCOL = {
+        "two_phase": "psum",
+        "two_phase_scatter": "reduce_scatter",
+        "p2p": "p2p",
+        "plain": "plain",
+    }
+
+    def __init__(self, protocol: str = "two_phase", *, n: int | None = None,
+                 m: int = 3, scheme: str = "additive", seed: int = 0,
+                 b: int = 10, group=None, mode: str | None = None,
+                 fp: FixedPointConfig | None = None, block_rows: int = 64,
+                 device="cuda"):
+        if mode is None:
+            if protocol not in self.MODE_FOR_PROTOCOL:
+                raise ValueError(
+                    f"unknown protocol {protocol!r}; expected one of "
+                    f"{sorted(self.MODE_FOR_PROTOCOL)}")
+            mode = self.MODE_FOR_PROTOCOL[protocol]
+        self.device = dispatch.resolve_device(device)
+        self.protocol = protocol
+        self.mode = mode
+        self.n = n
+        self.m = m
+        self.b = b
+        self.scheme = scheme
+        self.seed = seed
+        self.group = group
+        self.fp = fp
+        self.block_rows = block_rows
+
+    def _kw(self, round_index):
+        return dict(scheme=self.scheme, m=self.m, group=self.group,
+                    seed=self.seed, round_index=round_index, mode=self.mode,
+                    block_rows=self.block_rows, fp=self.fp)
+
+    def elect(self, round_index: int = 0):
+        """Alg. 2 as one small sum over the parties."""
+        from . import spmd
+        if self.n is None:
+            raise ValueError("SPMDTransport needs n= to run the election")
+        return spmd.elect_committee_spmd(self.n, self.m, self.b,
+                                         self.seed + round_index,
+                                         group=self.group,
+                                         device=self.device)
+
+    def aggregate(self, flats, party_ids=None, *, round_index: int = 0):
+        """Per party: ``flats`` is THIS party's flat ``[D]`` update."""
+        from . import spmd
+        return spmd.secure_aggregate(torch.as_tensor(flats).to(self.device),
+                                     **self._kw(round_index))
+
+    def aggregate_tree(self, tree, *, round_index: int = 0,
+                       chunk_elems: int | None = None):
+        from . import spmd
+        return spmd.secure_aggregate_tree(tree, chunk_elems=chunk_elems,
+                                          **self._kw(round_index))
+
+
 def make_transport(protocol: str, n: int, *, backend: str = "sim",
                    device="cuda", **kw) -> Transport:
-    """Factory of the counting simulation transports on ``device``."""
+    """Factory of the counting simulation transports on ``device``, or of
+    the SPMD adapter (``backend="spmd"``)."""
     reject_later(backend=backend)
+    if backend == "spmd":
+        return SPMDTransport(protocol, n=n, device=device, **kw)
+    if backend != "sim":
+        raise ValueError(f"unknown backend {backend!r}")
     if protocol not in SIM_TRANSPORTS:
         raise ValueError(
             f"unknown protocol {protocol!r}; expected one of "

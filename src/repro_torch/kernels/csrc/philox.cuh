@@ -25,17 +25,29 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// Mask or coefficient words j (1-based share index) for the four
-// elements of counter block `block` in the "flat" layout:
-// counter (block, 0, j, 0).
-__device__ __forceinline__ void philox_words(uint32_t block, uint32_t j,
-                                             uint32_t k0, uint32_t k1,
-                                             uint32_t w[4]) {
-  const uint4 y = philox4x32_10(make_uint4(block, 0u, j, 0u), k0, k1);
+// Mask or coefficient words of stream `hi` for the four elements of
+// counter block `block`.  The "flat" layout of the party-batch kernels
+// puts hi in the third counter word, (block, 0, hi, 0); the "tiled"
+// layout of the reference's single-party kernels (philox.tiled_words)
+// puts it in the second, (block, hi, 0, 0).
+template <bool kTiled>
+__device__ __forceinline__ void philox_words_at(uint32_t block, uint32_t hi,
+                                                uint32_t k0, uint32_t k1,
+                                                uint32_t w[4]) {
+  const uint4 c = kTiled ? make_uint4(block, hi, 0u, 0u)
+                         : make_uint4(block, 0u, hi, 0u);
+  const uint4 y = philox4x32_10(c, k0, k1);
   w[0] = y.x;
   w[1] = y.y;
   w[2] = y.z;
   w[3] = y.w;
+}
+
+// The "flat" layout: counter (block, 0, j, 0) for share index j.
+__device__ __forceinline__ void philox_words(uint32_t block, uint32_t j,
+                                             uint32_t k0, uint32_t k1,
+                                             uint32_t w[4]) {
+  philox_words_at<false>(block, j, k0, k1, w);
 }
 
 }  // namespace repro

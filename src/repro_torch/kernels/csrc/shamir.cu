@@ -3,9 +3,12 @@
 //
 // Replaces:
 //   src/repro/kernels/shamir/kernel.py:111 shamir_share_batch_pallas
-//     (called from core/aggregation.py:201);
+//     (called from core/aggregation.py:201; "flat" counter layout);
+//   src/repro/kernels/shamir/kernel.py:68 shamir_share_pallas
+//     (called from fl/spmd.py:156-159; "tiled" layout);
 //   src/repro/kernels/shamir/kernel.py:158 shamir_reconstruct_pallas
-//     (called from core/aggregation.py:416, with n = 1).
+//     (called from core/aggregation.py:416 with n = 1, and from
+//     fl/spmd.py with the party count folded into inv_scale).
 //
 // What bounds them on the H100:
 //   * share generation is bound by integer operations: per element,
@@ -20,12 +23,13 @@
 //   * reconstruction reads k rows and writes one float row with k
 //     multiply-adds per element: bound by device memory.
 //
-// Design: as share_gen.cu -- flat [l, D] rows, one thread per four
+// Design: as share_gen.cu -- flat [D] rows, one thread per four
 // consecutive elements, Philox block counter_base + i/4 with counter
-// (block, 0, j, 0) for coefficient j = 1..d, grid (element quads,
-// parties).  The degree is a runtime argument up to kMaxDegree so the
-// coefficient array stays in registers; the wrapper rejects larger
-// degrees.
+// (block, 0, hi_base + j, 0) ("flat") or (block, hi_base + j, 0, 0)
+// ("tiled") for coefficient j = 1..d; grid (element quads, parties) for
+// the batch, (element quads) for one party.  The degree is a runtime
+// argument up to kMaxDegree so the coefficient array stays in
+// registers; the wrapper rejects larger degrees.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -39,24 +43,18 @@ namespace {
 
 constexpr int kMaxDegree = 16;
 
-__global__ void shamir_share_batch_kernel(const float* __restrict__ x,
-                                          const uint32_t* __restrict__ keys,
-                                          uint32_t* __restrict__ out,
-                                          long long d, int m, int degree,
-                                          uint32_t counter_base, float scale,
-                                          float clip) {
-  const long long quad = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// The m shares of the four elements of quad `quad` of one party's row.
+template <bool kTiled>
+__device__ __forceinline__ void shamir_quad(
+    const float* __restrict__ x_row, uint32_t* __restrict__ party_out,
+    long long d, long long quad, int m, int degree, uint32_t counter_base,
+    uint32_t hi_base, uint32_t k0, uint32_t k1, float scale, float clip) {
   const long long i0 = quad * 4;
-  if (i0 >= d) return;
-  const int p = blockIdx.y;
-  const uint32_t k0 = keys[2 * p];
-  const uint32_t k1 = keys[2 * p + 1];
   const int cnt = d - i0 < 4 ? (int)(d - i0) : 4;
   const bool vec = (d & 3) == 0;
-  uint32_t* party_out = out + (long long)p * m * d;
 
   float xv[4];
-  repro::load4(x + (long long)p * d, i0, cnt, vec, xv);
+  repro::load4(x_row, i0, cnt, vec, xv);
   uint32_t v[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[k] = repro::encode_field(xv[k], scale, clip);
@@ -68,7 +66,8 @@ __global__ void shamir_share_batch_kernel(const float* __restrict__ x,
   uint32_t lead[4] = {v[0], v[1], v[2], v[3]};
   if (degree > 0) {
     uint32_t w[4];
-    repro::philox_words(block, (uint32_t)degree, k0, k1, w);
+    repro::philox_words_at<kTiled>(block, hi_base + (uint32_t)degree, k0,
+                                   k1, w);
 #pragma unroll
     for (int k = 0; k < 4; ++k) lead[k] = repro::to_field(w[k]);
   }
@@ -77,7 +76,8 @@ __global__ void shamir_share_batch_kernel(const float* __restrict__ x,
   for (int j = 0; j < kMaxDegree - 1; ++j) {
     if (j < degree - 1) {
       uint32_t w[4];
-      repro::philox_words(block, (uint32_t)(j + 1), k0, k1, w);
+      repro::philox_words_at<kTiled>(block, hi_base + (uint32_t)(j + 1), k0,
+                                     k1, w);
 #pragma unroll
       for (int k = 0; k < 4; ++k) a[j][k] = repro::to_field(w[k]);
     }
@@ -102,6 +102,31 @@ __global__ void shamir_share_batch_kernel(const float* __restrict__ x,
     }
     repro::store4(party_out + (long long)s * d, i0, cnt, vec, acc);
   }
+}
+
+__global__ void shamir_share_batch_kernel(const float* __restrict__ x,
+                                          const uint32_t* __restrict__ keys,
+                                          uint32_t* __restrict__ out,
+                                          long long d, int m, int degree,
+                                          uint32_t counter_base, float scale,
+                                          float clip) {
+  const long long quad = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (quad * 4 >= d) return;
+  const int p = blockIdx.y;
+  shamir_quad<false>(x + (long long)p * d, out + (long long)p * m * d, d,
+                     quad, m, degree, counter_base, 0u, keys[2 * p],
+                     keys[2 * p + 1], scale, clip);
+}
+
+__global__ void shamir_share_kernel(const float* __restrict__ x,
+                                    uint32_t* __restrict__ out, long long d,
+                                    int m, int degree, uint32_t k0,
+                                    uint32_t k1, uint32_t hi_base,
+                                    float scale, float clip) {
+  const long long quad = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (quad * 4 >= d) return;
+  shamir_quad<true>(x, out, d, quad, m, degree, 0u, hi_base, k0, k1, scale,
+                    clip);
 }
 
 __global__ void shamir_reconstruct_kernel(const uint32_t* __restrict__ sums,
@@ -135,6 +160,20 @@ extern "C" int repro_shamir_share_batch(const void* x, const void* keys,
   shamir_share_batch_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const uint32_t*>(keys),
       static_cast<uint32_t*>(out), d, m, degree, counter_base, scale, clip);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_shamir_share(const void* x, void* out, long long d,
+                                  int m, int degree, unsigned k0,
+                                  unsigned k1, unsigned hi_base, float scale,
+                                  float clip, void* stream) {
+  if (degree < 0 || degree > kMaxDegree) return (int)cudaErrorInvalidValue;
+  const long long quads = (d + 3) / 4;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((quads + threads - 1) / threads);
+  shamir_share_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<uint32_t*>(out), d, m,
+      degree, k0, k1, hi_base, scale, clip);
   return (int)cudaGetLastError();
 }
 

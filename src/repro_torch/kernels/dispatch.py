@@ -45,11 +45,20 @@ _SIGNATURES = {
     "repro_share_gen_batch": (_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_uint, ctypes.c_float,
                               ctypes.c_float, _P),
+    # x, out, d, m, key0, key1, hi_base, scale, clip, stream
+    "repro_share_gen": (_P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+                        ctypes.c_float, ctypes.c_float, _P),
     # x, keys, out, l, d, m, degree, counter_base, scale, clip, stream
     "repro_shamir_share_batch": (_P, _P, _P, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_uint,
                                  ctypes.c_float, ctypes.c_float, _P),
+    # x, out, d, m, degree, key0, key1, hi_base, scale, clip, stream
+    "repro_shamir_share": (_P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                           ctypes.c_uint, ctypes.c_float, ctypes.c_float,
+                           _P),
     # shares, out, m, d, inv_scale, n, stream
     "repro_reconstruct": (_P, _P, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_float, _P),

@@ -15,11 +15,13 @@ from repro_torch.kernels import dispatch
 NAME = "repro_reconstruct"
 
 
-def reconstruct_cuda(shares: torch.Tensor, n: int, cfg: FixedPointConfig):
+def reconstruct_cuda(shares: torch.Tensor, n: int, cfg: FixedPointConfig,
+                     inv_scale: float | None = None):
     """int32 ``[m, D]`` -> float32 ``[D]``."""
     m, d = shares.shape
     out = torch.empty((d,), dtype=torch.float32, device=shares.device)
     if d:
         dispatch.launch(NAME, shares.data_ptr(), out.data_ptr(), m, d,
-                        1.0 / cfg.scale, float(n))
+                        1.0 / cfg.scale if inv_scale is None else inv_scale,
+                        float(n))
     return out

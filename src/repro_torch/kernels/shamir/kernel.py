@@ -1,8 +1,8 @@
 """Launches of the CUDA Shamir kernels (``csrc/shamir.cu``).
 
 Replace ``repro/kernels/shamir/kernel.py:111``
-(``shamir_share_batch_pallas``) and ``:158``
-(``shamir_reconstruct_pallas``).  The source's header note says what
+(``shamir_share_batch_pallas``), ``:68`` (``shamir_share_pallas``) and
+``:158`` (``shamir_reconstruct_pallas``).  The source's header note says what
 bounds them on the H100 and how their design answers that.
 """
 
@@ -15,6 +15,7 @@ from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
 
 SHARE_NAME = "repro_shamir_share_batch"
+SINGLE_NAME = "repro_shamir_share"
 RECONSTRUCT_NAME = "repro_shamir_reconstruct"
 #: coefficient words kept in registers per thread (``kMaxDegree``)
 MAX_DEGREE = 16
@@ -33,8 +34,21 @@ def shamir_share_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
     return out
 
 
+def shamir_share_cuda(flat: torch.Tensor, m: int, key0: int, key1: int,
+                      cfg: FixedPointConfig, degree: int, hi_base: int = 0):
+    """float32 ``[D]`` + host key words -> int32 ``[m, D]``."""
+    d = flat.shape[0]
+    out = torch.empty((m, d), dtype=torch.int32, device=flat.device)
+    if out.numel():
+        dispatch.launch(SINGLE_NAME, flat.data_ptr(), out.data_ptr(), d, m,
+                        degree, key0 & U32_MASK, key1 & U32_MASK,
+                        hi_base & U32_MASK, cfg.scale, cfg.clip)
+    return out
+
+
 def shamir_reconstruct_cuda(member_sums: torch.Tensor, weights, n: int,
-                            cfg: FixedPointConfig):
+                            cfg: FixedPointConfig,
+                            inv_scale: float | None = None):
     """int32 ``[k, D]`` + host weights -> float32 ``[D]``."""
     k, d = member_sums.shape
     w = dispatch.device_ints(tuple(int(x) for x in weights),
@@ -43,5 +57,6 @@ def shamir_reconstruct_cuda(member_sums: torch.Tensor, weights, n: int,
     if d:
         dispatch.launch(RECONSTRUCT_NAME, member_sums.data_ptr(),
                         w.data_ptr(), out.data_ptr(), k, d,
-                        1.0 / cfg.scale, float(n))
+                        1.0 / cfg.scale if inv_scale is None else inv_scale,
+                        float(n))
     return out

@@ -1,8 +1,9 @@
-"""Launch of the CUDA share-generation kernel (``csrc/share_gen.cu``).
+"""Launches of the CUDA share-generation kernels (``csrc/share_gen.cu``).
 
-Replaces ``repro/kernels/share_gen/kernel.py:140``
-(``share_gen_batch_pallas``).  The source's header note says what bounds
-it on the H100 and how its design answers that.
+Replace ``repro/kernels/share_gen/kernel.py:140``
+(``share_gen_batch_pallas``) and ``:89`` (``share_gen_pallas``).  The
+source's header note says what bounds them on the H100 and how their
+design answers that.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
 
 NAME = "repro_share_gen_batch"
+SINGLE_NAME = "repro_share_gen"
 
 
 def share_gen_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
@@ -25,4 +27,16 @@ def share_gen_batch_cuda(flats: torch.Tensor, m: int, keys: torch.Tensor,
         dispatch.launch(NAME, flats.data_ptr(), keys.data_ptr(),
                         out.data_ptr(), l, d, m, counter_base & U32_MASK,
                         cfg.scale, cfg.clip)
+    return out
+
+
+def share_gen_cuda(flat: torch.Tensor, m: int, key0: int, key1: int,
+                   cfg: FixedPointConfig, hi_base: int = 0):
+    """float32 ``[D]`` + host key words -> int32 ``[m, D]``."""
+    d = flat.shape[0]
+    out = torch.empty((m, d), dtype=torch.int32, device=flat.device)
+    if out.numel():
+        dispatch.launch(SINGLE_NAME, flat.data_ptr(), out.data_ptr(), d, m,
+                        key0 & U32_MASK, key1 & U32_MASK,
+                        hi_base & U32_MASK, cfg.scale, cfg.clip)
     return out

@@ -1,0 +1,140 @@
+"""Building-block layers: norms, rotary embeddings, MLPs, losses.
+
+Counterpart of ``repro/models/layers.py``: functions over explicit
+parameter dicts in the reference's layout (a linear weight is
+``[in, out]`` and applied as ``x @ w``), with the reference's float
+sequence — norms and rotary embeddings in float32, matrix products in
+the compute dtype.  Initializers draw from an explicit
+``torch.Generator`` (the numbers differ from JAX's; the tests carry the
+reference's weights across instead).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .common import ArchConfig, shard
+
+
+def _normal(gen: torch.Generator, shape, dtype, device, scale: float):
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device) * scale
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(x.dtype)
+
+
+def norm_init(cfg: ArchConfig, dtype, device=None):
+    return rmsnorm_init(cfg.d_model, dtype, device)
+
+
+def apply_norm(cfg: ArchConfig, params, x):
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: ``[B, H, S, D]``; positions: ``[B, S]``.  (The reference's
+    M-RoPE sections belong to qwen2-vl's embeddings frontend, a later
+    slice; for ``[B, S]`` positions M-RoPE is this rotation.)"""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
+                            device=x.device)                     # [D/2]
+    angles = positions[:, None, :, None].float() * freqs        # [B,1,S,D/2]
+    cos = torch.cos(angles)
+    sin = torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense SiLU-gated MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype, device=None,
+             d_ff: int | None = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    scale_in = 1.0 / np.sqrt(d)
+    scale_out = 1.0 / np.sqrt(f)
+    return {
+        "w_gate": _normal(gen, (d, f), dtype, device, scale_in),
+        "w_up": _normal(gen, (d, f), dtype, device, scale_in),
+        "w_down": _normal(gen, (f, d), dtype, device, scale_out),
+    }
+
+
+def mlp_apply(params, x, cfg: ArchConfig):
+    cd = x.dtype
+    gate = x @ params["w_gate"].to(cd)
+    up = x @ params["w_up"].to(cd)
+    gate = shard(gate, "batch", "seq", "ff")
+    return (F.silu(gate) * up) @ params["w_down"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype,
+                   device=None):
+    return {"table": _normal(gen, (vocab, d), dtype, device, 0.02)}
+
+
+def embed(params, tokens, compute_dtype):
+    return params["table"].to(compute_dtype)[tokens]
+
+
+def chunked_softmax_xent(x, w_vocab, labels, *, chunk: int = 1024,
+                         label_mask=None):
+    """Cross-entropy over a large vocab without materializing ``[B,S,V]``.
+
+    A loop over sequence chunks: each chunk's logits live only in its
+    iteration, bounding the logits at ``B·chunk·V`` (at vocab 151,936 the
+    full float32 logits of a long sequence would take tens of GB).
+
+    x: ``[B, S, d]``; w_vocab: ``[d, V]``; labels: ``[B, S]``.  Returns
+    the mean NLL over unmasked positions.
+    """
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    if label_mask is None:
+        label_mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    w = w_vocab.to(x.dtype)
+    for lo in range(0, s, chunk):
+        xc = x[:, lo:lo + chunk]
+        yc = labels[:, lo:lo + chunk]
+        mc = label_mask[:, lo:lo + chunk].float()
+        logits = (xc @ w).float()
+        logits = shard(logits, "batch", None, "vocab")
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        nll = (lse - gold) * mc
+        total = total + nll.sum()
+        count = count + mc.sum()
+    return total / torch.clamp(count, min=1.0)

@@ -1,0 +1,43 @@
+"""Model API registry: family -> (init, loss, prefill, cache, decode).
+
+Counterpart of ``repro/models/registry.py``.  The transformer API's
+``init`` and ``loss_fn`` are ported (the dense family); prefill, the KV
+cache and decode belong to the next slice and raise
+``NotImplementedError``, as does the enc-dec family.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from . import transformer
+from .common import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    init: Callable
+    loss_fn: Callable
+    prefill: Callable
+    init_cache: Callable
+    decode_step: Callable
+
+
+def _tf_init_cache(params, cfg, batch, kv_len, **kw):
+    del params
+    return transformer.init_cache(cfg, batch, kv_len, **kw)
+
+
+TRANSFORMER_API = ModelApi(
+    init=transformer.init,
+    loss_fn=transformer.loss_fn,
+    prefill=transformer.prefill,
+    init_cache=_tf_init_cache,
+    decode_step=transformer.decode_step,
+)
+
+
+def get_api(cfg: ArchConfig) -> ModelApi:
+    transformer.check_family(cfg)
+    return TRANSFORMER_API

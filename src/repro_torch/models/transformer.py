@@ -1,0 +1,336 @@
+"""Decoder-only LM of the dense family, as an ``nn.Module``.
+
+Counterpart of ``repro/models/transformer.py`` for the dense family
+(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b): one parameter schema and
+the training entry points.
+
+* ``init(cfg, seed, device)`` — a ``Transformer`` whose parameters are
+  registered under the reference's tree keys, with the layers
+  **stacked**: every leaf under ``layers`` has a leading ``L`` dim, as
+  the reference's ``lax.scan`` stack has.  So the gradient tree has the
+  reference's 14 leaves for qwen1.5-0.5b, with the same key paths and
+  element order, and the secure aggregation's per-leaf seeds
+  (``fl.spmd.leaf_seed_tag``) and Philox streams are the reference's.
+* ``loss_fn(params, batch, cfg)`` — next-token NLL over a nested dict of
+  tensors (``model.params()``, or detached copies for local steps).
+* ``from_reference`` / ``to_reference`` — the reference's parameter
+  tree, as numpy arrays keyed by its leaf paths, into and out of the
+  port's model.
+
+The loop over layers takes each stacked leaf apart once with ``unbind``,
+so backward writes each leaf's gradient as one ``[L, ...]`` stack.
+``cfg.remat`` wraps each layer in ``torch.utils.checkpoint``: the
+backward recomputes the layer's forward with the same operations, so
+no number changes.  The MoE, SSM, hybrid and enc-dec families, and
+prefill and decode, are later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.tree import flatten_with_path, path_str, unflatten
+from repro_torch.kernels import dispatch
+from .attention import attention
+from .common import ArchConfig, dtype_of, shard
+from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
+                     embedding_init, mlp_apply, mlp_init, norm_init)
+
+
+#: families of the reference that later slices of the port carry over
+LATER_FAMILIES = {
+    "moe": "the MoE family (ROADMAP queue 1, item 6)",
+    "ssm": "the SSM family with ssm_scan (ROADMAP queue 1, item 3)",
+    "hybrid": "the hybrid family with lru_scan (ROADMAP queue 1, item 4)",
+    "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
+}
+SERVING_LATER = ("the prefill and serving slice (ROADMAP queue 1, item 1)")
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense LM."""
+    if cfg.enc_dec:
+        key = "enc_dec"
+    elif cfg.n_experts:
+        key = "moe"
+    elif cfg.family in ("ssm", "hybrid"):
+        key = cfg.family
+    elif cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
+            "the port's train step takes token batches")
+    elif (cfg.norm, cfg.act, cfg.window) != ("rmsnorm", "silu", 0):
+        raise NotImplementedError(
+            f"norm={cfg.norm!r}, act={cfg.act!r}, window={cfg.window} "
+            f"({cfg.name}) is not ported yet: it belongs to ROADMAP queue "
+            "1, item 6 of the PyTorch port, whose dense block is rmsnorm, "
+            "a SiLU-gated MLP and full causal attention (qwen1.5-0.5b, "
+            "tinyllama-1.1b, llama3.2-1b)")
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name} is not ported yet: it belongs to "
+        f"{LATER_FAMILIES[key]} of the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# Per-block init/apply
+# ---------------------------------------------------------------------------
+
+def attn_init(gen, cfg: ArchConfig, dtype, device=None):
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = 1.0 / np.sqrt(d)
+    so = 1.0 / np.sqrt(h * dh)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=dtype,
+                           device=device) * scale
+
+    p = {"wq": normal((d, h * dh), s), "wk": normal((d, hkv * dh), s),
+         "wv": normal((d, hkv * dh), s), "wo": normal((h * dh, d), so)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, x, cfg: ArchConfig, positions):
+    b, s, _ = x.shape
+    cd = x.dtype
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"].to(cd)
+    k = x @ p["wk"].to(cd)
+    v = x @ p["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = q.reshape(b, s, h, dh).transpose(1, 2)
+    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    q = shard(q, "batch", "heads", None, None)
+    k = shard(k, "batch", "kv_heads", None, None)
+    v = shard(v, "batch", "kv_heads", None, None)
+    if cfg.rope in ("rope", "mrope"):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg: ArchConfig, positions, impl: str = "auto",
+               causal: bool = True):
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = attention(q, k, v, cfg, causal=causal, impl=impl)
+    o = shard(o, "batch", "heads", None, None)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
+    return o @ p["wo"].to(x.dtype)
+
+
+def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+    return {"ln1": norm_init(cfg, dtype, device),
+            "attn": attn_init(gen, cfg, dtype, device),
+            "ln2": norm_init(cfg, dtype, device),
+            "mlp": mlp_init(gen, cfg, dtype, device)}
+
+
+def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
+                impl: str = "auto"):
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+    h = x + attn_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cfg,
+                       positions, impl=impl)
+    return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Layer-stack plan (which kinds, how stacked)
+# ---------------------------------------------------------------------------
+
+def stack_plan(cfg: ArchConfig) -> tuple[tuple[str, ...], int,
+                                         tuple[str, ...]]:
+    """Returns (group_kinds, n_groups, tail_kinds), as the reference; the
+    dense family (the one ``check_family`` lets through) stacks one
+    ``attn`` block per layer."""
+    return ("attn",), cfg.n_layers, ()
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+def _register(module: nn.Module, tree: dict) -> None:
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            child = nn.Module()
+            _register(child, value)
+            module.add_module(key, child)
+        else:
+            module.register_parameter(key, nn.Parameter(value))
+
+
+class Transformer(nn.Module):
+    """A dense LM whose parameters sit under the reference's tree keys
+    (``embed.table``, ``layers.b0_attn.attn.wq`` [L, d, h·dh], ...)."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        _register(self, tree)
+
+    def params(self) -> dict:
+        """The parameters as the reference's nested tree."""
+        names = [tuple(name.split(".")) for name, _ in
+                 self.named_parameters()]
+        return unflatten(names, [p for _, p in self.named_parameters()])
+
+
+def _model_device(device) -> torch.device:
+    """The card unless ``device="cpu"``; ``"meta"`` builds shapes only."""
+    device = torch.device(device)
+    return device if device.type == "meta" else dispatch.resolve_device(
+        device)
+
+
+def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
+    """A ``Transformer`` with weights drawn from ``seed`` on ``device``,
+    with the reference's scales (embedding 0.02, projections
+    ``1/sqrt(fan_in)``, norm scales 1, biases 0)."""
+    check_family(cfg)
+    device = _model_device(device)
+    dtype = dtype_of(cfg, "param_dtype")
+    group_kinds, n_groups, _ = stack_plan(cfg)
+    # a model on the meta device (shapes only) draws nothing
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(int(seed)))
+    groups = [{f"b{i}_{kind}": block_init(gen, cfg, dtype, kind, device)
+               for i, kind in enumerate(group_kinds)}
+              for _ in range(n_groups)]
+    paths = [p for p, _ in flatten_with_path(groups[0])]
+    stacked = [torch.stack([dict(flatten_with_path(g))[p] for g in groups])
+               for p in paths]
+    tree: dict[str, Any] = {
+        "embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype, device),
+        "layers": unflatten(paths, stacked),
+        "final_norm": norm_init(cfg, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": torch.randn(
+            (cfg.d_model, cfg.vocab), generator=gen, dtype=dtype,
+            device=device) * (1.0 / np.sqrt(cfg.d_model))}
+    return Transformer(cfg, tree)
+
+
+def from_reference(cfg: ArchConfig, arrays: dict[str, np.ndarray],
+                   device="cuda") -> Transformer:
+    """The port's model holding the reference's weights.
+
+    ``arrays`` maps each leaf path as the reference prints it
+    (``"['layers']/['b0_attn']/['attn']/['wq']"``) to its numpy array.
+    """
+    want = {path_str(p): p for p in _schema_paths(cfg)}
+    if set(arrays) != set(want):
+        raise ValueError(
+            f"leaf paths differ from the {cfg.name} schema: missing "
+            f"{sorted(set(want) - set(arrays))}, unexpected "
+            f"{sorted(set(arrays) - set(want))}")
+    device = _model_device(device)
+    paths = [want[k] for k in sorted(want)]
+    leaves = [torch.as_tensor(np.asarray(arrays[path_str(p)]),
+                              device=device).clone() for p in paths]
+    return Transformer(cfg, unflatten(paths, leaves))
+
+
+def to_reference(model: Transformer) -> dict[str, np.ndarray]:
+    """The model's parameters as numpy arrays keyed by reference path."""
+    return {path_str(p): leaf.detach().cpu().numpy()
+            for p, leaf in flatten_with_path(model.params())}
+
+
+def _schema_paths(cfg: ArchConfig):
+    """Leaf paths of the model ``init(cfg)`` builds (on the meta
+    device: no memory, no weights)."""
+    model = init(cfg, device="meta")
+    return [p for p, _ in flatten_with_path(model.params())]
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence) + loss
+# ---------------------------------------------------------------------------
+
+def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
+    group_kinds, n_groups, _ = stack_plan(cfg)
+    flat = flatten_with_path(params["layers"])
+    paths = [p for p, _ in flat]
+    per_layer = list(zip(*(leaf.unbind(0) for _, leaf in flat)))
+    if len(per_layer) != n_groups:
+        raise ValueError(f"{len(per_layer)} stacked layers, expected "
+                         f"{n_groups}")
+
+    def group_body(xc, *layer_leaves):
+        gp = unflatten(paths, layer_leaves)
+        for i, kind in enumerate(group_kinds):
+            xc = block_apply(gp[f"b{i}_{kind}"], xc, cfg, positions, kind,
+                             impl=impl)
+        return xc
+
+    for layer_leaves in per_layer:
+        if cfg.remat:
+            x = checkpoint(group_body, x, *layer_leaves,
+                           use_reentrant=False)
+        else:
+            x = group_body(x, *layer_leaves)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def forward_hidden(params, batch, cfg: ArchConfig, impl: str = "auto"):
+    check_family(cfg)
+    cd = dtype_of(cfg, "compute_dtype")
+    x = embed(params["embed"], batch["tokens"], cd)
+    b, s, _ = x.shape
+    x = shard(x, "batch", "seq", "embed")
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    return _run_stack(params, x, cfg, positions, impl)
+
+
+def lm_head_weight(params, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto"):
+    """Mean next-token NLL.  batch: tokens ``[B,S]``, labels ``[B,S]``."""
+    h = forward_hidden(params, batch, cfg, impl=impl)
+    w = lm_head_weight(params, cfg)
+    return chunked_softmax_xent(h, w, batch["labels"],
+                                label_mask=batch.get("label_mask"))
+
+
+def prefill(params, batch, cfg: ArchConfig, impl: str = "auto"):
+    raise NotImplementedError(
+        f"prefill is not ported yet: it belongs to {SERVING_LATER}")
+
+
+def init_cache(cfg: ArchConfig, batch: int, kv_len: int, dtype=None):
+    raise NotImplementedError(
+        f"the KV cache is not ported yet: it belongs to {SERVING_LATER}")
+
+
+def decode_step(params, cache, batch, cfg: ArchConfig):
+    raise NotImplementedError(
+        f"decode is not ported yet: it belongs to {SERVING_LATER}")

@@ -5,7 +5,9 @@
 * importing every module of ``repro_torch`` leaves ``jax`` out of
   ``sys.modules`` (a fresh interpreter);
 * every entry point defaults to the CUDA device and raises
-  ``RuntimeError`` when there is none, instead of falling back to the CPU.
+  ``RuntimeError`` when there is none, instead of falling back to the CPU;
+* every knob of a later slice raises ``NotImplementedError`` naming its
+  ROADMAP item.
 """
 
 import ast
@@ -64,13 +66,24 @@ def test_importing_the_port_loads_no_jax():
 
 
 def _entry_points():
+    from repro_torch.configs import get_config
     from repro_torch.core import committee
     from repro_torch.core.aggregation import SecureAggregator
     from repro_torch.fl import FLSimulation, FedAvgConfig, make_transport
-    from repro_torch.fl import run_fedavg
-    from repro_torch.models import simple_nn
+    from repro_torch.fl import run_fedavg, spmd
+    from repro_torch.launch import steps, train
+    from repro_torch.models import simple_nn, transformer
+    smoke = get_config("qwen1.5-0.5b", smoke=True)
     return {
+        "make_transport_spmd": lambda: make_transport("two_phase", 4,
+                                                      backend="spmd"),
+        "make_train_step": lambda: steps.make_train_step(smoke),
+        "transformer": lambda: transformer.init(smoke),
+        "train": lambda: train.run(train.parse_args(
+            ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1"])),
         "elect": lambda: committee.elect(4, 3, 10, 0),
+        "elect_committee_spmd": lambda: spmd.elect_committee_spmd(4, 3, 10,
+                                                                  0),
         "SecureAggregator": lambda: SecureAggregator(),
         "make_transport": lambda: make_transport("two_phase", 4),
         "FLSimulation": lambda: FLSimulation(4),
@@ -85,7 +98,9 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["elect", "SecureAggregator",
                                   "make_transport",
                                   "FLSimulation", "run_fedavg", "SimpleNN",
-                                  "ComplexNN"])
+                                  "ComplexNN", "make_transport_spmd",
+                                  "make_train_step", "transformer",
+                                  "train", "elect_committee_spmd"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -94,21 +109,90 @@ def test_entry_points_default_to_the_card(name):
         _entry_points()[name]()
 
 
+def test_spmd_transport_elects_on_its_own_device(monkeypatch):
+    """``SPMDTransport.elect`` draws and sums the votes where the
+    transport runs (the card by default), not on the host."""
+    from repro_torch.fl import make_transport, spmd
+    seen = []
+    real = spmd.elect_committee_spmd
+
+    def spy(*args, **kw):
+        seen.append(kw.get("device"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(spmd, "elect_committee_spmd", spy)
+    tr = make_transport("two_phase", 4, backend="spmd", device="cpu")
+    committee = tr.elect(0)
+    assert seen == [tr.device] and committee.device == tr.device
+    assert committee.shape == (3,)
+
+
+def _train_knob(name):
+    """A later-slice option of the train path, as a call that must raise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import attention, transformer
+    smoke = get_config("qwen1.5-0.5b", smoke=True)
+
+    def cli(*argv):
+        return lambda: train.run(train.parse_args(
+            ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+             *argv]))
+
+    q = torch.zeros((1, 1, 8, 4))
+    return {
+        "fsdp": lambda: steps.make_train_step(smoke, fsdp=True,
+                                              device="cpu"),
+        # tinyllama-1.1b's fp32 state takes the MPC-FSDP layout
+        "fsdp_none": lambda: steps.make_train_step(
+            get_config("tinyllama-1.1b"), device="cpu"),
+        "compress_topk": lambda: steps.make_train_step(
+            smoke, compress_topk=0.1, device="cpu"),
+        "pallas": lambda: attention.attention(q, q, q, smoke, impl="pallas"),
+        "moe": lambda: transformer.init(dataclasses.replace(
+            smoke, n_experts=4, top_k=2, d_ff_expert=32)),
+        "ssm": lambda: get_config("falcon-mamba-7b"),
+        "hybrid": lambda: transformer.init(dataclasses.replace(
+            smoke, family="hybrid")),
+        "enc_dec": lambda: get_config("whisper-large-v3"),
+        "starcoder2": lambda: get_config("starcoder2-3b"),
+        "layernorm": lambda: transformer.init(dataclasses.replace(
+            smoke, norm="layernorm"), device="cpu"),
+        "window": lambda: transformer.loss_fn(
+            {}, {}, dataclasses.replace(smoke, window=8)),
+        "prefill": lambda: transformer.prefill({}, {}, smoke),
+        "ckpt_dir": cli("--ckpt-dir", "ckpt"),
+    }[name]
+
+
 @pytest.mark.parametrize("knob", [
     dict(vss=True, cohort=3), dict(cohort=3),
     dict(reelect_each_round=True, cohort=3), dict(compress_topk=0.1),
     dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
+    "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "ssm", "hybrid",
+    "enc_dec", "prefill", "ckpt_dir", "starcoder2", "layernorm", "window",
 ])
 def test_later_slice_knobs_raise_not_implemented(knob):
+    if isinstance(knob, str):
+        with pytest.raises(NotImplementedError,
+                           match=r"not ported yet.*ROADMAP queue"):
+            _train_knob(knob)()
+        return
     from repro_torch.fl import FedAvgConfig
     with pytest.raises(NotImplementedError, match="later|not ported"):
         FedAvgConfig(n_parties=4, **knob)
 
 
 def test_later_slice_transport_options_raise_not_implemented():
-    from repro_torch.fl import make_transport
+    from repro_torch.fl import SPMDTransport, make_transport
+    # the SPMD backend is ported (a world of one without a process
+    # group); the wire backend still raises
+    tr = make_transport("two_phase", 4, backend="spmd", device="cpu")
+    assert isinstance(tr, SPMDTransport) and tr.mode == "psum"
     with pytest.raises(NotImplementedError, match="wire"):
-        make_transport("two_phase", 4, backend="spmd", device="cpu")
+        make_transport("two_phase", 4, backend="wire", device="cpu")
     tr = make_transport("two_phase", 4, device="cpu")
     with pytest.raises(NotImplementedError, match="cohort slice"):
         tr.aggregate(torch.zeros(4, 8), eligible={0, 1, 2})

@@ -27,8 +27,9 @@ from repro.kernels.share_gen import (pad_to_tiles, share_gen_batch as j_sgb,
 from repro_torch.core.fixed_point import FixedPointConfig as TFP
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.reconstruct import reconstruct
-from repro_torch.kernels.shamir import shamir_reconstruct, shamir_share_batch
-from repro_torch.kernels.share_gen import share_gen_batch
+from repro_torch.kernels.shamir import (shamir_reconstruct, shamir_share,
+                                        shamir_share_batch)
+from repro_torch.kernels.share_gen import share_gen, share_gen_batch
 from repro_torch.kernels.verify_shares import verify_shares
 
 P = 0x7FFFFFFF
@@ -143,10 +144,12 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     shamir_reconstruct(fshares.sum(0) % P, 2, TFP(algebra="field"))
     verify_shares(fshares[0], torch.ones((64, 1, 2), dtype=torch.int64),
                   (1, 2, 3))
+    share_gen(x[0], 3, 5, 6, TFP(), hi_base=64)
+    shamir_share(x[0], 3, 5, 6, TFP(algebra="field"), hi_base=64)
     assert set(dispatch.launches) == {
         "repro_share_gen_batch", "repro_shamir_share_batch",
         "repro_reconstruct", "repro_shamir_reconstruct",
-        "repro_verify_shares"}
+        "repro_verify_shares", "repro_share_gen", "repro_shamir_share"}
     assert all(v == 0 for v in dispatch.launches.values())
 
 
