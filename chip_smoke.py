@@ -10,7 +10,17 @@ non-zero without the final result line):
 
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels: each of the four kernels of the two-phase round against its
+3. attention kernels: ``flash_attention`` against its plain version on
+   the same CUDA tensors at qwen1.5-0.5b's prefill shape [8, 16, 2048,
+   64] causal (bf16 and float32), a ragged Sq = Skv = 1,000, the GQA
+   groups of tinyllama-1.1b (32, 4) and llama3.2-1b (32, 8), a window of
+   64, Sq < Skv and D = 128; ``decode_attention`` at [8, 16, 64] against
+   a cache of S = 640 at kv_len 1 / 300 / 640 (bf16 and float32 queries
+   on a bf16 cache, and a float32 cache) and the GQA group (32, 4);
+   float32 outputs to 2e-5 absolute + 1e-4 relative, bf16 outputs to
+   2e-2; median times from CUDA events beside the bound, the plain
+   version's time and SDPA's (timed for the table only);
+4. kernels: each of the four kernels of the two-phase round against its
    plain PyTorch version on the same CUDA tensors at the main-path
    shapes (a party chunk of l=1024, m=3, D=10,000, plus a ragged
    D=10,001 with a non-zero counter offset): ``torch.equal`` on the bit
@@ -18,45 +28,60 @@ non-zero without the final result line):
    then the Feldman check ``verify_shares`` at the member-row shape
    (k=3, D=10,000), a ragged D=10,001 and the audit shape (k=3,
    D=1,024 x 10,000), each with a known set of tampered elements;
-4. rounds: the two-phase round at n=10,000 parties and s=10,000
+5. rounds: the two-phase round at n=10,000 parties and s=10,000
    elements, additive and Shamir, through ``make_transport`` on the
    card, with counters against Eqs. 3-6, the mean bit for bit against
    the same round through the plain versions on the card, and within
    the fixed-point rounding of the float64 plain mean;
-5. vss: the malicious-secure round (Feldman VSS, per-round
+6. vss: the malicious-secure round (Feldman VSS, per-round
    re-election) at n=2,048, s=10,000: an honest round, then a member
    tampering with ``flip``, ``wrong_poly`` and ``replay`` in turn,
    each blamed, evicted and re-elected away with the honest mean;
-6. audit: the norm-bound dealer audit at n=1,024, s=10,000 with a
+7. audit: the norm-bound dealer audit at n=1,024, s=10,000 with a
    ``scale`` and a ``sign_flip`` dealer, both blamed, and a
    ``malformed`` dealer that fails the round;
-7. streaming: chunked aggregation equals the whole vector, and the card
+8. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
-8. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-9. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
-   path's share kernels) against their plain versions, ``torch.equal``,
-   at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
-   and at a ragged D = 10,001 with ``hi_base`` 192, with times and
-   bounds;
-10. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
+9. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+10. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
+    path's share kernels) against their plain versions, ``torch.equal``,
+    at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
+    and at a ragged D = 10,001 with ``hi_base`` 192, with times and
+    bounds;
+11. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
     backend rule picks gloo; ``reduce_scatter`` and ``all_gather`` stage
     through host memory): every mode and scheme of
     ``fl.spmd.secure_aggregate``, each rank's mean bit-identical to the
     others and, in the secure modes, to the same aggregation composed
     from the plain versions on the card; then two train steps of the
     smoke config, with identical parameters on every rank;
-11. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
+12. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
     at full width and depth, a world of one, global batch 8 x seq 128,
     four steps each of ``plain``, ``two_phase`` additive and
     ``two_phase`` Shamir: every step's aggregated gradient, leaf by leaf,
     bit-identical to decode(encode(g)) composed from the plain versions
     on the card; 14 launches of the scheme's share and reconstruct
-    kernels per secure step; loss, step wall time and tok/s per step
-    (the check's time taken out: the trainer's own "tok/s" lines count
-    it), then one profiled step split into its ``fwd_bwd``,
-    ``secure_aggregate`` and ``adamw_update`` ranges and one unchecked
-    step with its peak device memory;
-12. summary: a ``{"kernels": [...]}`` line, then the result line.
+    kernels per secure step (and none of the attention kernels); loss,
+    step wall time and tok/s per step (the check's time taken out: the
+    trainer's own "tok/s" lines count it), then one profiled step split
+    into its ``fwd_bwd``, ``secure_aggregate`` and ``adamw_update``
+    ranges and one unchecked step with its peak device memory;
+13. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
+    random weights from seed 0, batch 8 x prompt 2,048 in the config's
+    bf16: 24 flash launches per call, wall time and tok/s per call, the
+    logits against the same prefill through the plain attention on the
+    card (in float32 compute to 1e-3; in bf16 within the distance, as a
+    root mean square over the logits, that bf16 compute puts between the
+    plain logits and float32's), and one profiled call;
+14. serve: the ``launch.serve`` loop (prefill by decode, then greedy
+    generation) on qwen1.5-0.5b at full size, batch 8, prompt 512,
+    gen 128: in float32 compute, every step's logits against the plain
+    step on the card fed the same tokens (each with its own bf16 cache)
+    to 1e-2, greedy tokens equal except at printed near-ties, and the
+    first generated token's logits against the prefill's to 5e-2; then
+    in the config's bf16, 24 decode launches per step, ms per step,
+    tok/s, peak memory and one profiled step's device busy share;
+15. summary: a ``{"kernels": [...]}`` line, then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
@@ -133,9 +158,10 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, int_ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1137,6 +1163,402 @@ def phase_train() -> dict:
     return launches
 
 
+#: bf16 dense tensor-core peak of an H100 SXM (NVIDIA data sheet): the
+#: attention kernels' operation bound
+BF16_FLOP_PER_S = 989e12
+#: attention tolerances (float32 output; bfloat16 output)
+F32_ATOL, F32_RTOL, BF16_ATOL = 2e-5, 1e-4, 2e-2
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: the work of a kernel
+    that skips what it cannot see."""
+    qa = np.arange(sq) + (skv - sq if causal else 0)
+    hi = np.minimum(skv - 1, qa) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qa - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _close(got, want, atol: float, rtol: float, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; raises past
+    ``atol + rtol·|want|``."""
+    import torch
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    require(ok and bool(torch.isfinite(got).all()),
+            f"{what}: kernel differs from its plain version "
+            f"(max abs err {err})")
+    return err
+
+
+FLASH_CASES = [
+    # (name, b, hq, hkv, sq, skv, d, causal, window, dtype); the first is
+    # qwen1.5-0.5b's prefill at batch 8 x 2,048, the main path's shape
+    ("prefill", 8, 16, 16, 2048, 2048, 64, True, 0, "bfloat16"),
+    ("prefill_f32", 8, 16, 16, 2048, 2048, 64, True, 0, "float32"),
+    ("ragged", 2, 16, 16, 1000, 1000, 64, True, 0, "float32"),
+    ("ragged_bf16", 2, 16, 16, 1000, 1000, 64, True, 0, "bfloat16"),
+    ("gqa_tinyllama", 2, 32, 4, 512, 512, 64, True, 0, "float32"),
+    ("gqa_llama32", 2, 32, 8, 512, 512, 64, True, 0, "bfloat16"),
+    ("window64", 2, 16, 16, 1000, 1000, 64, True, 64, "float32"),
+    ("sq_below_skv", 2, 16, 16, 100, 700, 64, True, 0, "float32"),
+    ("d128_noncausal", 1, 8, 8, 300, 300, 128, False, 0, "float32"),
+]
+
+
+def phase_flash_kernel() -> dict:
+    """``flash_attention`` against its plain version on the same CUDA
+    tensors; returns the timing row of the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    row = None
+    for name, b, hq, hkv, sq, skv, d, causal, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device="cuda").manual_seed(sq * hq + window)
+        q = torch.randn((b, hq, sq, d), device="cuda", generator=gen
+                        ).to(dtype)
+        k = torch.randn((b, hkv, skv, d), device="cuda", generator=gen
+                        ).to(dtype)
+        v = torch.randn((b, hkv, skv, d), device="cuda", generator=gen
+                        ).to(dtype)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        require(got.dtype == dtype, f"flash {name}: output {got.dtype}")
+        if dtype == torch.float32:
+            err = _close(got, want, F32_ATOL, F32_RTOL, f"flash {name}")
+        else:
+            err = _close(got, want.to(dtype), BF16_ATOL, 0.0, f"flash {name}")
+        del want
+        entry = {"phase": "kernel", "name": "flash_attention", "case": name,
+                 "shape": [b, hq, hkv, sq, skv, d], "causal": causal,
+                 "window": window, "dtype": dt, "max_abs_err": err,
+                 "tol": ([F32_ATOL, F32_RTOL] if dtype == torch.float32
+                         else [BF16_ATOL, 0.0])}
+        if name == "prefill":
+            elt = q.element_size()
+            nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+            flops = 4 * b * hq * d * visible_pairs(sq, skv, causal, window)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            entry.update(
+                ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                           10),
+                plain_ms=cuda_ms(lambda: attention_ref(q, k, v,
+                                                       causal=causal), 3),
+                # Sq = Skv: SDPA's is_causal mask is the same mask
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 10),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+            row = entry
+        emit(entry)
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
+DECODE_CASES = [
+    # (b, hq, hkv, s, kv_len, q dtype, cache dtype); the serve path's
+    # shape is batch 8, 16 heads, D 64 against S = 640
+    (8, 16, 16, 640, 1, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 300, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 640, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 1, "float32", "bfloat16"),
+    (8, 16, 16, 640, 300, "float32", "bfloat16"),
+    (8, 16, 16, 640, 640, "float32", "bfloat16"),
+    (8, 16, 16, 640, 300, "float32", "float32"),
+    (8, 32, 4, 640, 300, "float32", "bfloat16"),
+    (8, 32, 4, 640, 640, "bfloat16", "bfloat16"),
+]
+
+
+def phase_decode_kernel() -> dict:
+    """``decode_attention`` against its plain version on the same CUDA
+    tensors (the partials acc, m, l, and the normalized output: float32
+    outputs of exact float32 copies of the inputs, so the float32
+    tolerance holds for every input type); returns the timing row of the
+    serve path's longest step (kv_len 640, bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (combine_partials,
+                                                      decode_attention,
+                                                      decode_attention_partial,
+                                                      decode_attention_ref)
+    d = 64
+    row = None
+    for b, hq, hkv, s, kv_len, qdt, kvdt in DECODE_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(kv_len + hq)
+        q = torch.randn((b, hq, d), device="cuda", generator=gen
+                        ).to(getattr(torch, qdt))
+        k = torch.randn((b, hkv, s, d), device="cuda", generator=gen
+                        ).to(getattr(torch, kvdt))
+        v = torch.randn((b, hkv, s, d), device="cuda", generator=gen
+                        ).to(getattr(torch, kvdt))
+        what = f"decode [{b},{hq},{hkv},{s}] kv_len {kv_len} {qdt}/{kvdt}"
+        got = decode_attention_partial(q, k, v, kv_len=kv_len)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q, k, v, kv_len=kv_len)
+        for g, w, part in zip(got, want, ("acc", "m", "l")):
+            _close(g, w, F32_ATOL, F32_RTOL, f"{what} {part}")
+        out = combine_partials(*(t[None] for t in got))
+        err = _close(out, combine_partials(*(t[None] for t in want)),
+                     F32_ATOL, F32_RTOL, f"{what} output")
+        entry = {"phase": "kernel", "name": "decode_attention",
+                 "shape": [b, hq, hkv, s, d], "kv_len": kv_len,
+                 "q_dtype": qdt, "cache_dtype": kvdt, "max_abs_err": err,
+                 "tol": [F32_ATOL, F32_RTOL]}
+        if (kv_len, qdt, kvdt, hq) == (640, "bfloat16", "bfloat16", 16):
+            nbytes = (q.element_size() * b * hq * d
+                      + k.element_size() * 2 * b * hkv * kv_len * d
+                      + 4 * (b * hq * d + 2 * b * hq))
+            flops = 4 * b * hq * kv_len * d
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            q1, kc, vc = q[:, :, None], k[:, :, :kv_len], v[:, :, :kv_len]
+            entry.update(
+                ms=cuda_ms(lambda: decode_attention_partial(
+                    q, k, v, kv_len=kv_len), 50),
+                plain_ms=cuda_ms(lambda: decode_attention_ref(
+                    q, k, v, kv_len=kv_len), 10),
+                # one query against the cache sliced to kv_len
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q1, kc, vc), 50),
+                normalized_ms=cuda_ms(lambda: decode_attention(
+                    q, k, v, kv_len=kv_len), 50),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+            row = entry
+        emit(entry)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+#: kernel-name parts the prefill and serve traces sum: the attention
+#: kernels, cuBLAS's GEMMs on the H100 (named nvjet_*, or *gemm*) and
+#: PyTorch's elementwise kernels
+PROFILE_NAMES = ("flash_attention_kernel", "decode_attention_kernel",
+                 "nvjet", "gemm", "elementwise")
+
+
+def _profile(fn, names: tuple[str, ...]) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall, device busy
+    share, the device time of kernels whose name holds each of
+    ``names``, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda r: -r[1])
+    require(kernels, "the trace shows no kernel on the card")
+    busy = sum(k[1] for k in kernels)
+    return {"wall_ms_traced": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "kernel_ms": {n: sum(t for k, t, _ in kernels if n in k)
+                          for n in names},
+            "kernel_launches": {n: sum(c for k, _, c in kernels if n in k)
+                                for n in names},
+            "top": [{"kernel": k[:90], "ms": t, "calls": c}
+                    for k, t, c in kernels[:8]]}
+
+
+def phase_prefill() -> int:
+    """``make_prefill`` on qwen1.5-0.5b at full size, batch 8 x 2,048;
+    returns the flash launches of the main-path (bf16) call."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models.registry import get_api
+    cfg = get_config("qwen1.5-0.5b")
+    (b, s), calls = PREFILL_SHAPE, 3
+    model = get_api(cfg).init(cfg, seed=0, device="cuda")
+    params = model.params()
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    batch = {"tokens": tokens}
+    prefill = make_prefill(cfg)
+    prefill(params, batch)  # first call: the kernels' first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    walls = []
+    for _ in range(calls):
+        wall, logits = _timed(lambda: prefill(params, batch))
+        walls.append(wall)
+    launches = dispatch.launches["repro_flash_attention"]
+    require(launches == cfg.n_layers * calls
+            and sum(dispatch.launches.values()) == launches,
+            f"prefill: launches {dispatch.launches} over {calls} calls")
+    peak = torch.cuda.max_memory_allocated()
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            "prefill: logits are not finite float32 [8, vocab]")
+    # the plain version of the flash kernel on the card, and the bf16
+    # model's own distance from float32 compute: the kernel's bf16
+    # logits must sit within the latter of the plain bf16 logits, as a
+    # root mean square over all 8 x 151,936 logits (a steadier measure
+    # than the largest of them, which is also reported)
+    dense = make_prefill(cfg, attn_impl="dense")(params, batch)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    flash32 = make_prefill(cfg32)(params, batch)
+    dense32 = make_prefill(cfg32, attn_impl="dense")(params, batch)
+    err32 = float((flash32 - dense32).abs().max())
+    require(err32 <= PREFILL_F32_TOL,
+            f"prefill float32: flash vs plain logits differ by {err32}")
+
+    def rms(t):
+        return float(t.double().pow(2).mean().sqrt())
+
+    bf16_noise = {"max_abs": float((dense - dense32).abs().max()),
+                  "rms": rms(dense - dense32)}
+    err = {"max_abs": float((logits - dense).abs().max()),
+           "rms": rms(logits - dense)}
+    require(err["rms"] <= bf16_noise["rms"],
+            f"prefill bf16: flash vs plain logits differ by {err}, more "
+            f"than bf16 compute moves them ({bf16_noise})")
+    prof = _profile(lambda: prefill(params, batch), PROFILE_NAMES)
+    emit({"phase": "prefill", "arch": "qwen1.5-0.5b", "layers": cfg.n_layers,
+          "batch": b, "prompt": s, "compute_dtype": "bfloat16",
+          "flash_launches_per_call": launches // calls,
+          "wall_s": walls, "tok_per_s": [b * s / w for w in walls],
+          "peak_mem_bytes": peak, "logits_err_vs_plain": err,
+          "bf16_vs_f32_logits": bf16_noise,
+          "f32_logits_max_abs_err_vs_plain": err32,
+          "f32_tol": PREFILL_F32_TOL, "profiled_call": prof})
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: prefill: batch x prompt; serve: batch, prompt, generated tokens
+PREFILL_SHAPE = (8, 2048)
+SERVE_SHAPE = (8, 512, 128)
+#: float32 prefill logits, flash against plain: the same function with
+#: sums in another order, through 24 layers (logits of order 1)
+PREFILL_F32_TOL = 1e-3
+#: float32 decode logits, kernel loop against the plain loop (each with
+#: its own bf16 cache, fed the same tokens): a key or value near a bf16
+#: rounding edge may round one step apart in the two caches (2^-8
+#: relative), which moves the logits by much more than the float32 sums
+SERVE_F32_TOL = 1e-2
+#: the first generated token's logits against the prefill's: the serve
+#: loop's cache holds k and v rounded to bf16, the prefill's attention
+#: uses them in float32 (a relative step of 2^-8 on each)
+SERVE_VS_PREFILL_TOL = 5e-2
+
+
+def phase_serve() -> int:
+    """The ``launch.serve`` loop on qwen1.5-0.5b at full size, batch 8,
+    prompt 512, gen 128: the float32 check, then the bf16 (config) run
+    with its times; returns the decode launches of the bf16 run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
+    cfg = get_config("qwen1.5-0.5b")
+    (b, plen, gen), seed = SERVE_SHAPE, 0
+    kv_len = plen + gen
+    model = get_api(cfg).init(cfg, seed=seed, device="cuda")
+    params = model.params()
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab,
+                                                 size=(b, plen))
+
+    # float32 compute: each kernel step against the plain step, fed the
+    # kernel loop's tokens, with a cache of its own
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain_cache = transformer.init_cache(cfg32, b, kv_len)
+    stats = {"max_err": 0.0, "near_ties": 0, "near_tie_steps": 0,
+             "steps": 0, "first_logits": None}
+
+    def observe(dbatch, logits):
+        want, _ = transformer.decode_step(params, plain_cache, dbatch,
+                                          cfg32, impl="dense")
+        err = float((logits - want).abs().max())
+        require(bool(torch.isfinite(logits).all()),
+                f"serve float32 step {dbatch['index']}: logits not finite")
+        require(err <= SERVE_F32_TOL,
+                f"serve float32 step {dbatch['index']}: logits differ from "
+                f"the plain step by {err}")
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_F32_TOL
+        differ = logits.argmax(-1) != want.argmax(-1)
+        require(not bool((differ & ~tie).any()),
+                f"serve float32 step {dbatch['index']}: a greedy token "
+                "differs from the plain step's away from a near-tie")
+        stats["max_err"] = max(stats["max_err"], err)
+        stats["near_ties"] += int((differ & tie).sum())
+        stats["near_tie_steps"] += int(tie.any())
+        stats["steps"] += 1
+        if dbatch["index"] == plen - 1:
+            stats["first_logits"] = logits.clone()
+
+    with torch.no_grad():
+        res32 = generate(cfg32, params, prompt, gen, observe=observe)
+    require(stats["steps"] == kv_len, f"serve float32: {stats['steps']} "
+                                      "steps observed")
+    pre = make_prefill(cfg32)(params, {"tokens": prompt})
+    err_pre = float((stats["first_logits"] - pre).abs().max())
+    require(err_pre <= SERVE_VS_PREFILL_TOL,
+            f"serve float32: the first generated token's logits differ from "
+            f"the prefill's by {err_pre}")
+    require(res32["tokens"].shape == (b, gen),
+            f"serve float32: tokens {res32['tokens'].shape}")
+    del plain_cache, res32, pre
+    emit({"phase": "serve_check", "arch": "qwen1.5-0.5b",
+          "compute_dtype": "float32", "cache_dtype": "bfloat16", "batch": b,
+          "prompt": plen, "gen": gen, "steps": stats["steps"],
+          "logits_max_abs_err_vs_plain": stats["max_err"],
+          "tol": SERVE_F32_TOL,
+          "greedy_tokens_differing_at_near_ties": stats["near_ties"],
+          "steps_with_a_near_tie": stats["near_tie_steps"],
+          "first_token_logits_vs_prefill_max_abs": err_pre,
+          "first_token_vs_prefill_tol": SERVE_VS_PREFILL_TOL})
+
+    # the config's bf16: the main path, timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = generate(cfg, params, prompt, gen)
+    launches = dispatch.launches["repro_decode_attention"]
+    require(launches == cfg.n_layers * kv_len
+            and sum(dispatch.launches.values()) == launches,
+            f"serve: launches {dispatch.launches} over {kv_len} steps")
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(toks.shape == (b, gen) and toks.min() >= 0
+            and toks.max() < cfg.vocab, f"serve: tokens {toks.shape}")
+    step = make_serve_step(cfg, kv_len, b)
+    cache = res["cache"]
+    last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
+            "index": kv_len - 1}
+    prof = _profile(lambda: step(params, cache, last), PROFILE_NAMES)
+    emit({"phase": "serve", "arch": "qwen1.5-0.5b",
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": gen, "decode_launches_per_step": launches // kv_len,
+          "prompt_steps_s": res["prompt_s"], "gen_s": res["gen_s"],
+          "ms_per_decode_step": res["gen_s"] / gen * 1e3,
+          "gen_tok_per_s": b * gen / res["gen_s"], "peak_mem_bytes": peak,
+          "sample_row": toks[0][:16].tolist(), "profiled_step": prof})
+    del model, params, res, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -1159,6 +1581,12 @@ KERNELS = [
     ("shamir_share", "repro_shamir_share",
      "src/repro_torch/kernels/csrc/shamir.cu",
      "src/repro/kernels/shamir/kernel.py:68"),
+    ("flash_attention", "repro_flash_attention",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:104"),
+    ("decode_attention", "repro_decode_attention",
+     "src/repro_torch/kernels/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:72"),
 ]
 
 
@@ -1189,6 +1617,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
+    attn_rows = {"flash_attention": phase_flash_kernel(),
+                 "decode_attention": phase_decode_kernel()}
     rows = phase_kernels()
     verify_rows = phase_verify_kernel()
     # the kernels line reports verify_shares at the audit shape, the
@@ -1220,6 +1650,9 @@ def main(argv=None) -> int:
     # their launches are the rounds' and the train steps' together
     for key, count in phase_train().items():
         launches[key] = launches.get(key, 0) + count
+    launches["repro_flash_attention"] = phase_prefill()
+    launches["repro_decode_attention"] = phase_serve()
+    rows.update(attn_rows)
 
     kernels = []
     for name, key, source, replaces in KERNELS:
@@ -1232,8 +1665,9 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            # no single PyTorch call computes these functions
-            "library_ms": None})
+            # SDPA for the attention kernels; no single PyTorch call
+            # computes the others
+            "library_ms": row.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     emit({"kernels": kernels})

@@ -69,7 +69,21 @@ _SIGNATURES = {
     # rows, commits, points, out, k, d, c, stream
     "repro_verify_shares": (_P, _P, _P, _P, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_int, _P),
+    # q, k, v, out, b, hq, hkv, sq, skv, d, q/k/v strides (b, h, s),
+    # scale, causal, window, dtype, stream
+    "repro_flash_attention": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
+                              *(ctypes.c_longlong,) * 9, ctypes.c_float,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    # q, k, v, acc, m, l, b, hq, hkv, d, kv_len, q strides (b, h),
+    # k/v strides (b, h, s), scale, q dtype, kv dtype, stream
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 5,
+                               *(ctypes.c_longlong,) * 8, ctypes.c_float,
+                               ctypes.c_int, ctypes.c_int, _P),
 }
+
+#: element-type codes of the float kernels' C interface
+#: (``csrc/attention.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last ``reset_launches`` — a wrapper adds
 #: one where it launches its kernel and nowhere else, so a run can show

@@ -1,4 +1,4 @@
-"""The secure-FL train step, replicated layout.
+"""The secure-FL train step (replicated layout), prefill and serve step.
 
 Counterpart of ``repro/launch/steps.py::make_train_step`` (:253) with
 ``fsdp=False``: every party holds the whole model, and per step
@@ -12,6 +12,10 @@ reference's ``shard_map`` over the party axes becomes each rank taking
 its own rows of the global batch.  ``record_function`` ranges name the
 step's parts for a profiler: ``fwd_bwd``, ``secure_aggregate`` and
 ``adamw_update``.
+
+``make_prefill`` and ``make_serve_step`` are the counterparts of the
+reference's (:432-470) without ``jit`` or a mesh: plain callables on one
+device, run without autograd.
 
 Later slices: MPC-FSDP (``fsdp=True``, or ``fsdp=None`` resolving to it
 for a model whose fp32 state does not fit 60 % of 16 GB), top-k
@@ -201,3 +205,68 @@ class TrainStep:
 def make_train_step(cfg: ArchConfig, **kw) -> TrainStep:
     """The train step of ``cfg`` (keywords as ``TrainStep``)."""
     return TrainStep(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# prefill / serve_step factories
+# ---------------------------------------------------------------------------
+
+def make_prefill(cfg: ArchConfig, attn_impl: str = "auto", device="cuda"):
+    """``prefill(params, batch) -> logits [B, V]`` (float32, last
+    position).  ``params``: the model's ``params()`` tree;
+    ``batch["tokens"]`` ``[B, S]`` (numpy or a tensor) is moved to the
+    step's device.  ``attn_impl="auto"`` runs the flash kernel on the
+    card."""
+    api = get_api(cfg)
+    device = dispatch.resolve_device(device)
+
+    def prefill_fn(params, batch):
+        tokens = torch.as_tensor(np.asarray(batch["tokens"])) \
+            if not isinstance(batch["tokens"], torch.Tensor) \
+            else batch["tokens"]
+        with torch.no_grad():
+            return api.prefill(params, {"tokens": tokens.to(device)}, cfg,
+                               impl=attn_impl)
+
+    return prefill_fn
+
+
+class ServeStep:
+    """``step(params, cache, dbatch) -> (token [B] int32, cache)``: one
+    greedy decode step (``argmax`` of the logits, the first index on a
+    tie, as ``jnp.argmax``).  ``params``: the model's ``params()`` tree;
+    ``cache``: ``init_cache(params, cfg, batch, kv_len)`` of the model
+    API, updated in place; ``dbatch``: ``tokens`` ``[B, 1]`` on the
+    step's device, ``index`` a host int.
+
+    ``observe``: if set, ``observe(dbatch, logits)`` is called with each
+    step's float32 logits before the argmax — for checks of the step.
+    """
+
+    def __init__(self, cfg: ArchConfig, kv_len: int, batch: int, *,
+                 device="cuda"):
+        self.api = get_api(cfg)
+        self.cfg = cfg
+        self.kv_len = kv_len
+        self.batch = batch
+        self.device = dispatch.resolve_device(device)
+        self.observe = None
+
+    def __call__(self, params, cache, dbatch):
+        k = cache["groups"]["b0_attn"]["k"]
+        if k.shape[1] != self.batch or k.shape[3] != self.kv_len:
+            raise ValueError(f"cache of batch {k.shape[1]} × length "
+                             f"{k.shape[3]}; the step serves {self.batch} "
+                             f"× {self.kv_len}")
+        with torch.no_grad():
+            logits, cache = self.api.decode_step(params, cache, dbatch,
+                                                 self.cfg)
+            if self.observe is not None:
+                self.observe(dbatch, logits)
+            token = logits.argmax(dim=-1).to(torch.int32)
+        return token, cache
+
+
+def make_serve_step(cfg: ArchConfig, kv_len: int, batch: int, **kw):
+    """The greedy serve step of ``cfg`` (keywords as ``ServeStep``)."""
+    return ServeStep(cfg, kv_len, batch, **kw)

@@ -1,17 +1,24 @@
-"""Attention for training: the dense and chunked (online-softmax) paths.
+"""Attention: the dense, chunked (online-softmax) and flash-kernel paths.
 
-Counterpart of ``repro/models/attention.py``.  The reference dispatches
-between three implementations; the port has two of them:
+Counterpart of ``repro/models/attention.py``, with three
+implementations behind one entry point:
 
-* ``dense`` — materialized scores, the plain version of the reference's
-  flash kernel (``kernels/flash_attention/ref.py::attention_ref``);
+* ``pallas`` — the flash kernel (``kernels/flash_attention``): the CUDA
+  kernel on a CUDA tensor, its plain version on a CPU tensor.  It has no
+  backward, as the reference's has none (ROADMAP queue 3, finding 1):
+  while autograd records, ``impl="pallas"`` raises and ``"auto"`` does
+  not pick it, so the train step runs ``dense`` / ``xla_chunked``;
 * ``xla_chunked`` — a loop over KV blocks with the streaming-softmax
   recurrence: the same ``O(Sq·block)`` score footprint;
-* ``pallas`` — the flash kernel.  The reference cannot differentiate it
-  (``jax.grad`` through ``flash_attention_pallas`` raises in Pallas's JVP
-  rule), so its train step never runs it; the port's kernel comes with
-  the prefill slice, where it runs forward only.  ``impl="pallas"``
-  raises and ``"auto"`` never picks it.
+* ``dense`` — materialized scores: the flash kernel's plain version
+  (``kernels/flash_attention/ref.py::attention_ref``).
+
+``"auto"`` is the reference's rule with the card in the TPU's place:
+the flash kernel on a CUDA tensor while autograd does not record (the
+reference also asks for lengths that divide by 128, which its TPU tiling
+needs and the CUDA kernel does not); else ``xla_chunked`` for long
+sequences and ``dense`` for short ones.  Decode goes through
+``kernels/decode_attention`` (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -19,14 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import records_grad
 from .common import ArchConfig
 
 NEG_INF = -1e30
 
-FLASH_LATER = ("impl='pallas' is not ported yet: flash_attention_pallas is "
-               "ROADMAP queue 2, item 3, and comes with the prefill and "
-               "serving slice (queue 1, item 1); training runs 'dense' or "
-               "'xla_chunked'")
+FLASH_UNDER_AUTOGRAD = (
+    "impl='pallas' under autograd is not ported yet: the flash kernel has "
+    "no backward, nor has the reference's (ROADMAP queue 3, finding 1); "
+    "training runs 'dense' or 'xla_chunked'")
 
 
 def _mask(q_idx, k_idx, causal: bool):
@@ -34,30 +43,6 @@ def _mask(q_idx, k_idx, causal: bool):
         return k_idx[None, :] > q_idx[:, None]
     return torch.zeros((q_idx.shape[0], k_idx.shape[0]), dtype=torch.bool,
                        device=q_idx.device)
-
-
-def dense_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None):
-    """q: ``[B,Hq,Sq,D]``, k/v: ``[B,Hkv,Skv,D]`` -> ``[B,Hq,Sq,D]``
-    (float32): ``softmax(q·kᵀ·scale + mask)·v`` with grouped KV heads and
-    causal masking aligned at the last key."""
-    b, hq, sq, d = q.shape
-    _, hkv, skv, _ = k.shape
-    if hq % hkv:
-        raise ValueError(f"{hq} query heads over {hkv} KV heads")
-    group = hq // hkv
-    scale = sm_scale if sm_scale is not None else 1.0 / np.sqrt(d)
-    kk = k.repeat_interleave(group, dim=1) if group > 1 else k
-    vv = v.repeat_interleave(group, dim=1) if group > 1 else v
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
-    q_idx = torch.arange(sq, device=q.device) + (skv - sq if causal else 0)
-    k_idx = torch.arange(skv, device=q.device)
-    s = torch.where(_mask(q_idx, k_idx, causal)[None, None],
-                    torch.full((), NEG_INF, device=q.device), s)
-    m = s.max(dim=-1, keepdim=True).values
-    e = torch.exp(s - m)
-    out = torch.einsum("bhqk,bhkd->bhqd", e, vv.float())
-    return out / e.sum(dim=-1, keepdim=True)
 
 
 def xla_chunked_attention(q, k, v, *, causal: bool = True,
@@ -107,14 +92,22 @@ def attention(q, k, v, cfg: ArchConfig, *, causal: bool = True,
     """Dispatching attention entry point.  q:``[B,H,Sq,D]``
     k/v:``[B,Hkv,Skv,D]``."""
     skv = k.shape[2]
+    recording = records_grad(q, k, v)
     if impl == "auto":
-        impl = ("xla_chunked" if skv >= 1024 and skv % 512 == 0
-                else "dense")
+        if q.device.type == "cuda" and not recording:
+            impl = "pallas"
+        elif skv >= 1024 and skv % 512 == 0:
+            impl = "xla_chunked"
+        else:
+            impl = "dense"
     if impl == "pallas":
-        raise NotImplementedError(FLASH_LATER)
+        if recording:
+            raise NotImplementedError(FLASH_UNDER_AUTOGRAD)
+        return flash_attention(q, k, v, causal=causal, window=cfg.window)
     if impl == "xla_chunked":
         return xla_chunked_attention(q, k, v, causal=causal,
                                      block_k=block_k)
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r}")
-    return dense_attention(q, k, v, causal=causal).to(q.dtype)
+    return attention_ref(q, k, v, causal=causal,
+                         window=cfg.window).to(q.dtype)

@@ -1,9 +1,9 @@
 """Model API registry: family -> (init, loss, prefill, cache, decode).
 
-Counterpart of ``repro/models/registry.py``.  The transformer API's
-``init`` and ``loss_fn`` are ported (the dense family); prefill, the KV
-cache and decode belong to the next slice and raise
-``NotImplementedError``, as does the enc-dec family.
+Counterpart of ``repro/models/registry.py`` for the dense family: the
+transformer API's ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
+``decode_step``.  The other families raise ``NotImplementedError``
+(``transformer.check_family``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ class ModelApi:
 
 
 def _tf_init_cache(params, cfg, batch, kv_len, **kw):
-    del params
+    """The cache on the parameters' device unless ``device=`` says."""
+    kw.setdefault("device", params["embed"]["table"].device)
     return transformer.init_cache(cfg, batch, kv_len, **kw)
 
 

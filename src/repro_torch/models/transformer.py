@@ -16,13 +16,21 @@ the training entry points.
 * ``from_reference`` / ``to_reference`` — the reference's parameter
   tree, as numpy arrays keyed by its leaf paths, into and out of the
   port's model.
+* ``prefill(params, batch, cfg)`` — the last position's logits of a
+  full forward (the flash kernel on the card), as the reference's;
+* ``init_cache`` / ``decode_step`` — the KV cache in the reference's
+  layout and one greedy-serving step against it.  The step updates the
+  cache in place (the reference returns a new one) and runs its
+  attention through the decode kernel (``kernels/decode_attention``),
+  where the reference computes it inline (ROADMAP queue 3, finding 4).
 
 The loop over layers takes each stacked leaf apart once with ``unbind``,
 so backward writes each leaf's gradient as one ``[L, ...]`` stack.
-``cfg.remat`` wraps each layer in ``torch.utils.checkpoint``: the
-backward recomputes the layer's forward with the same operations, so
-no number changes.  The MoE, SSM, hybrid and enc-dec families, and
-prefill and decode, are later slices and raise ``NotImplementedError``.
+``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` while
+autograd records: the backward recomputes the layer's forward with the
+same operations, so no number changes.  The MoE, SSM, hybrid and
+enc-dec families and sliding windows are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import flatten_with_path, path_str, unflatten
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.decode_attention import (combine_partials,
+                                                  decode_attention,
+                                                  decode_attention_ref)
 from .attention import attention
 from .common import ArchConfig, dtype_of, shard
 from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
@@ -49,7 +60,6 @@ LATER_FAMILIES = {
     "hybrid": "the hybrid family with lru_scan (ROADMAP queue 1, item 4)",
     "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
 }
-SERVING_LATER = ("the prefill and serving slice (ROADMAP queue 1, item 1)")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -63,7 +73,8 @@ def check_family(cfg: ArchConfig) -> None:
     elif cfg.frontend != "tokens":
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
-            "the port's train step takes token batches")
+            "the embeddings frontend belongs to ROADMAP queue 1, item 6 of "
+            "the PyTorch port, whose train and serve steps take tokens")
     elif (cfg.norm, cfg.act, cfg.window) != ("rmsnorm", "silu", 0):
         raise NotImplementedError(
             f"norm={cfg.norm!r}, act={cfg.act!r}, window={cfg.window} "
@@ -287,7 +298,7 @@ def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
         return xc
 
     for layer_leaves in per_layer:
-        if cfg.remat:
+        if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(group_body, x, *layer_leaves,
                            use_reentrant=False)
         else:
@@ -322,15 +333,112 @@ def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto"):
 
 
 def prefill(params, batch, cfg: ArchConfig, impl: str = "auto"):
-    raise NotImplementedError(
-        f"prefill is not ported yet: it belongs to {SERVING_LATER}")
+    """Last-position logits ``[B, V]`` (float32) of a full forward over
+    ``batch["tokens"]`` ``[B, S]``.  As the reference's, it builds no
+    cache: serving fills the cache by decode steps."""
+    h = forward_hidden(params, batch, cfg, impl=impl)
+    w = lm_head_weight(params, cfg)
+    last = h[:, -1, :]
+    return (last @ w.to(last.dtype)).float()
 
 
-def init_cache(cfg: ArchConfig, batch: int, kv_len: int, dtype=None):
-    raise NotImplementedError(
-        f"the KV cache is not ported yet: it belongs to {SERVING_LATER}")
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+#: the reference keeps its cache in bfloat16 whatever the compute dtype
+#: (``repro/models/transformer.py:269``)
+CACHE_DTYPE = torch.bfloat16
 
 
-def decode_step(params, cache, batch, cfg: ArchConfig):
-    raise NotImplementedError(
-        f"decode is not ported yet: it belongs to {SERVING_LATER}")
+def init_cache(cfg: ArchConfig, batch: int, kv_len: int,
+               dtype=CACHE_DTYPE, device="cuda"):
+    """Zeroed decode state: ``{"groups": {"b0_attn": {"k", "v"}}}``, each
+    ``[L, B, Hkv, kv_len, Dh]`` of ``dtype``, on ``device`` (the card
+    unless ``device="cpu"``)."""
+    check_family(cfg)
+    device = dispatch.resolve_device(device)
+    group_kinds, n_groups, _ = stack_plan(cfg)
+    shape = (n_groups, batch, cfg.n_kv_heads, kv_len, cfg.d_head)
+    return {"groups": {f"b{i}_{kind}": {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for i, kind in enumerate(group_kinds)}}
+
+
+def _decode_attn_block(p, x, cache_kv, cfg: ArchConfig, index: int,
+                       positions, impl: str):
+    """One-token attention against the KV cache, whose slot
+    ``index % S_buf`` takes this token's key and value in place.
+
+    x: ``[B, d]``; cache_kv: {k, v: ``[B, Hkv, S_buf, Dh]``}; positions:
+    ``[B, 1]`` (all ``index``).  Slots ``0..index`` hold positions
+    ``0..index`` (once ``index`` passes ``S_buf`` the ring holds the last
+    ``S_buf``, every slot valid, as in the reference): the decode kernel
+    reads ``kv_len = min(index + 1, S_buf)`` of them.
+    """
+    b = x.shape[0]
+    cd = x.dtype
+    q, k_new, v_new = _project_qkv(p, x[:, None, :], cfg, positions)
+    s_buf = cache_kv["k"].shape[2]
+    slot = index % s_buf
+    # rounded to the cache's dtype before attention, as the reference's
+    cache_kv["k"][:, :, slot] = k_new[:, :, 0]
+    cache_kv["v"][:, :, slot] = v_new[:, :, 0]
+    kv_len = min(index + 1, s_buf)
+    if impl == "dense":
+        acc, m, l = decode_attention_ref(q[:, :, 0], cache_kv["k"],
+                                         cache_kv["v"], kv_len=kv_len)
+        o = combine_partials(acc[None], m[None], l[None]).to(cd)
+    else:
+        o = decode_attention(q[:, :, 0], cache_kv["k"], cache_kv["v"],
+                             kv_len=kv_len)
+    o = o.reshape(b, cfg.n_heads * cfg.d_head)
+    return o @ p["wo"].to(cd)
+
+
+def _decode_block(p, x, cache_kv, cfg: ArchConfig, index: int, positions,
+                  kind: str, impl: str):
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+    h = x + _decode_attn_block(p["attn"], apply_norm(cfg, p["ln1"], x),
+                               cache_kv, cfg, index, positions, impl)
+    inner = apply_norm(cfg, p["ln2"], h[:, None, :])
+    return h + mlp_apply(p["mlp"], inner, cfg)[:, 0]
+
+
+def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
+    """One decode step.  batch: ``tokens`` ``[B, 1]``, ``index`` (a host
+    int: the current absolute position).
+
+    Returns (logits ``[B, V]`` float32, the cache, updated in place).
+    ``impl``: ``"auto"`` runs the decode-attention wrapper (the CUDA
+    kernel on the card, its plain version on the CPU); ``"dense"`` its
+    plain version on any device.
+    """
+    check_family(cfg)
+    if impl not in ("auto", "dense"):
+        raise ValueError(f"unknown decode impl {impl!r}: auto or dense")
+    cd = dtype_of(cfg, "compute_dtype")
+    index = int(batch["index"])
+    x = embed(params["embed"], batch["tokens"][:, 0], cd)
+    positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                           device=x.device)
+    group_kinds, n_groups, _ = stack_plan(cfg)
+    flat = flatten_with_path(params["layers"])
+    paths = [p for p, _ in flat]
+    per_layer = list(zip(*(leaf.unbind(0) for _, leaf in flat)))
+    if len(per_layer) != n_groups:
+        raise ValueError(f"{len(per_layer)} stacked layers, expected "
+                         f"{n_groups}")
+    for layer, layer_leaves in enumerate(per_layer):
+        gp = unflatten(paths, layer_leaves)
+        for i, kind in enumerate(group_kinds):
+            name = f"b{i}_{kind}"
+            kv = {key: cache["groups"][name][key][layer] for key in ("k", "v")}
+            x = _decode_block(gp[name], x, kv, cfg, index, positions, kind,
+                              impl)
+    x = apply_norm(cfg, params["final_norm"], x[:, None, :])[:, 0]
+    w = lm_head_weight(params, cfg)
+    return (x @ w.to(x.dtype)).float(), cache

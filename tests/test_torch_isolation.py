@@ -71,10 +71,14 @@ def _entry_points():
     from repro_torch.core.aggregation import SecureAggregator
     from repro_torch.fl import FLSimulation, FedAvgConfig, make_transport
     from repro_torch.fl import run_fedavg, spmd
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import simple_nn, transformer
     smoke = get_config("qwen1.5-0.5b", smoke=True)
     return {
+        "make_prefill": lambda: steps.make_prefill(smoke),
+        "make_serve_step": lambda: steps.make_serve_step(smoke, 8, 2),
+        "init_cache": lambda: transformer.init_cache(smoke, 2, 8),
+        "serve": lambda: serve.run(serve.parse_args(["--smoke"])),
         "make_transport_spmd": lambda: make_transport("two_phase", 4,
                                                       backend="spmd"),
         "make_train_step": lambda: steps.make_train_step(smoke),
@@ -100,7 +104,9 @@ def _entry_points():
                                   "FLSimulation", "run_fedavg", "SimpleNN",
                                   "ComplexNN", "make_transport_spmd",
                                   "make_train_step", "transformer",
-                                  "train", "elect_committee_spmd"])
+                                  "train", "elect_committee_spmd",
+                                  "make_prefill", "make_serve_step",
+                                  "init_cache", "serve"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -132,7 +138,7 @@ def _train_knob(name):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import attention, transformer
     smoke = get_config("qwen1.5-0.5b", smoke=True)
 
@@ -141,7 +147,8 @@ def _train_knob(name):
             ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
              *argv]))
 
-    q = torch.zeros((1, 1, 8, 4))
+    # the flash kernel has no backward: "pallas" while autograd records
+    q = torch.zeros((1, 1, 8, 4), requires_grad=True)
     return {
         "fsdp": lambda: steps.make_train_step(smoke, fsdp=True,
                                               device="cpu"),
@@ -162,7 +169,10 @@ def _train_knob(name):
             smoke, norm="layernorm"), device="cpu"),
         "window": lambda: transformer.loss_fn(
             {}, {}, dataclasses.replace(smoke, window=8)),
-        "prefill": lambda: transformer.prefill({}, {}, smoke),
+        "prefill": lambda: transformer.prefill({}, {}, dataclasses.replace(
+            smoke, frontend="embeddings")),
+        "serve_tp": lambda: serve.run(serve.parse_args(
+            ["--smoke", "--tp", "2", "--device", "cpu"])),
         "ckpt_dir": cli("--ckpt-dir", "ckpt"),
     }[name]
 
@@ -173,6 +183,7 @@ def _train_knob(name):
     dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
     "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "ssm", "hybrid",
     "enc_dec", "prefill", "ckpt_dir", "starcoder2", "layernorm", "window",
+    "serve_tp",
 ])
 def test_later_slice_knobs_raise_not_implemented(knob):
     if isinstance(knob, str):

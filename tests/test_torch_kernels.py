@@ -26,6 +26,8 @@ from repro.kernels.share_gen import (pad_to_tiles, share_gen_batch as j_sgb,
                                      unpad_flat)
 from repro_torch.core.fixed_point import FixedPointConfig as TFP
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.reconstruct import reconstruct
 from repro_torch.kernels.shamir import (shamir_reconstruct, shamir_share,
                                         shamir_share_batch)
@@ -146,10 +148,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                   (1, 2, 3))
     share_gen(x[0], 3, 5, 6, TFP(), hi_base=64)
     shamir_share(x[0], 3, 5, 6, TFP(algebra="field"), hi_base=64)
+    q = x[:, :32].reshape(1, 2, 2, 16)
+    flash_attention(q, q, q)
+    decode_attention(q[:, :, 0], q, q, kv_len=1)
     assert set(dispatch.launches) == {
         "repro_share_gen_batch", "repro_shamir_share_batch",
         "repro_reconstruct", "repro_shamir_reconstruct",
-        "repro_verify_shares", "repro_share_gen", "repro_shamir_share"}
+        "repro_verify_shares", "repro_share_gen", "repro_shamir_share",
+        "repro_flash_attention", "repro_decode_attention"}
     assert all(v == 0 for v in dispatch.launches.values())
 
 
