@@ -19,7 +19,13 @@ non-zero without the final result line):
    on a bf16 cache, and a float32 cache) and the GQA group (32, 4);
    float32 outputs to 2e-5 absolute + 1e-4 relative, bf16 outputs to
    2e-2; median times from CUDA events beside the bound, the plain
-   version's time and SDPA's (timed for the table only);
+   version's time and SDPA's (timed for the table only); ``ssm_scan``
+   (the Mamba-1 selective scan) at falcon-mamba-7b's prefill shape
+   [8, 2048, 8192], st 16 (bf16 and float32), a ragged S = di = 1,000,
+   st 4, and 4,096 steps with small |A| (the carry), with ptxas's
+   registers and stack, its time, its bound (bytes, float32
+   instructions or exponentials, whichever is largest, at the card's
+   clock) and the plain version's time;
 4. kernels: each of the four kernels of the two-phase round against its
    plain PyTorch version on the same CUDA tensors at the main-path
    shapes (a party chunk of l=1024, m=3, D=10,000, plus a ragged
@@ -81,7 +87,19 @@ non-zero without the final result line):
     first generated token's logits against the prefill's to 5e-2; then
     in the config's bf16, 24 decode launches per step, ms per step,
     tok/s, peak memory and one profiled step's device busy share;
-15. summary: a ``{"kernels": [...]}`` line, then the result line.
+15. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
+    7.27 B parameters, random weights from seed 0), ``make_prefill`` at
+    batch 8 x 2,048 in bf16: 64 launches of the selective-scan kernel a
+    call, wall time, tok/s, peak memory and one profiled call; the
+    logits against the chunked plain path at batch 2 (float32 compute to
+    1e-3; bf16 within the distance, as an RMS, that bf16 compute puts
+    between the plain logits and float32's);
+16. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
+    prompt 128, gen 64: the first generated token's logits against the
+    prefill's in float32 compute (1e-3), then in bf16 ms per step, tok/s,
+    peak memory and one profiled step (the SSM step runs no hand-written
+    kernel, as the reference's);
+17. summary: a ``{"kernels": [...]}`` line, then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
@@ -1363,6 +1381,7 @@ def _profile(fn, names: tuple[str, ...]) -> dict:
     busy = sum(k[1] for k in kernels)
     return {"wall_ms_traced": wall_ms, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms,
+            "kernels_launched": sum(c for _, _, c in kernels),
             "kernel_ms": {n: sum(t for k, t, _ in kernels if n in k)
                           for n in names},
             "kernel_launches": {n: sum(c for k, _, c in kernels if n in k)
@@ -1559,6 +1578,344 @@ def phase_serve() -> int:
     return launches
 
 
+#: the selective scan's bound (``csrc/ssm_scan.cu``): an H100 SXM has 132
+#: SMs, each with 128 float32 lanes and 16 special-function results
+#: (exp2) per clock (CUDA C Programming Guide, arithmetic instructions,
+#: compute capability 9.0)
+H100_SMS = 132
+FP32_LANES_PER_SM = 128
+SFU_PER_SM = 16
+#: float32 instructions per (row, step, channel, state) as the source
+#: spells them out: dt·A, dbx·B, the FMA of h and the FMA of y (expf's
+#: own range reduction is not counted); and one per (row, step, channel):
+#: dt·x
+SSM_FP32_PER_STATE = 4
+SSM_FP32_PER_CHANNEL = 1
+#: the selective scan's cases, held to the attention kernels' tolerances
+#: (float32 output 2e-5 + 1e-4 relative; bfloat16 output 2e-2)
+SSM_CASES = [
+    # (name, b, s, di, st, dtype, A scale); the first is falcon-mamba-7b's
+    # prefill at batch 8 x 2,048, the main path's shape
+    ("prefill", 8, 2048, 8192, 16, "bfloat16", 1.0),
+    ("prefill_f32", 8, 2048, 8192, 16, "float32", 1.0),
+    ("ragged", 2, 1000, 1000, 16, "float32", 1.0),
+    ("ragged_bf16", 2, 1000, 1000, 16, "bfloat16", 1.0),
+    ("st4_smoke", 2, 512, 1024, 4, "float32", 1.0),
+    # |A| of 1e-3..1.6e-2 at dt ~ 0.01: h keeps ~all of its past over
+    # 4,096 steps, so the carry decides every late output
+    ("carry_4096", 2, 4096, 512, 16, "float32", 1e-3),
+]
+#: x_proj's dt_rank columns ahead of B and C (falcon-mamba-7b): the
+#: kernel reads B and C as strided slices of one [B, S, 288] tensor
+SSM_DT_RANK = 256
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def ssm_bound(b: int, s: int, di: int, st: int, elt: int,
+              clock_hz: float) -> dict:
+    """The least time of one selective scan: the largest of the bytes
+    over 3.35 TB/s, the float32 instructions over the lanes' rate and the
+    exponentials over the special-function units' rate."""
+    n = b * s * di * st
+    nbytes = (elt * b * s * di * 2 + 4 * b * s * di + elt * 2 * b * s * st
+              + 4 * di * st)
+    fp32 = SSM_FP32_PER_STATE * n + SSM_FP32_PER_CHANNEL * b * s * di
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": fp32 / (H100_SMS * FP32_LANES_PER_SM * clock_hz) * 1e3,
+             "exp": n / (H100_SMS * SFU_PER_SM * clock_hz) * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_terms_ms": terms, "bytes": nbytes,
+            "fp32_instructions": fp32, "expf": n, "sm_clock_hz": clock_hz}
+
+
+def _ptxas_entries(log: str, kernel: str) -> list[dict]:
+    """Registers and stack of each instantiation of ``kernel`` that ptxas
+    reported (its ``-v`` lines)."""
+    lines = log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "entry function" not in ln or kernel not in ln:
+            continue
+        name = ln.split("'")[1]
+        frame = next((x.strip() for x in lines[i + 1:]
+                      if "stack frame" in x), "")
+        regs = next((x.strip() for x in lines[i + 1:] if "registers" in x),
+                    "")
+        out.append({"entry": name, "stack": frame, "registers": regs})
+    return out
+
+
+def _ssm_inputs(b, s, di, st, dtype, a_scale, seed):
+    """x, dt, B, C, A on the card as the model makes them: dt a softplus
+    of a normal around -4.6 (``dt_bias``), B and C strided slices of one
+    x_proj output, A = -(1..st)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, di), device="cuda", generator=gen).to(dtype)
+    dt = torch.logaddexp(
+        torch.randn((b, s, di), device="cuda", generator=gen) - 4.6,
+        torch.zeros((), device="cuda"))
+    dbc = torch.randn((b, s, SSM_DT_RANK + 2 * st), device="cuda",
+                      generator=gen).to(dtype)
+    bc = dbc[..., SSM_DT_RANK:SSM_DT_RANK + st]
+    cc = dbc[..., SSM_DT_RANK + st:]
+    a = -(torch.arange(1, st + 1, dtype=torch.float32, device="cuda")
+          * a_scale).repeat(di, 1)
+    return x, dt, bc, cc, a
+
+
+def _ssm_f64(x, dt, bc, cc, a):
+    """The plain version's recurrence in float64: how far each float32
+    path is from the exact scan of the same inputs."""
+    import torch
+    xd, dtd, bd, cd, ad = (t.double() for t in (x, dt, bc, cc, a))
+    h = torch.zeros((x.shape[0], x.shape[2], a.shape[1]),
+                    dtype=torch.float64, device=x.device)
+    ys = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for t in range(x.shape[1]):
+        h = (torch.exp(dtd[:, t, :, None] * ad[None]) * h
+             + (dtd[:, t] * xd[:, t])[..., None] * bd[:, t, None, :])
+        ys[:, t] = torch.einsum("bdn,bn->bd", h, cd[:, t])
+    return ys
+
+
+def phase_ssm_kernel() -> dict:
+    """``ssm_scan`` against its plain version on the same CUDA tensors;
+    returns the timing row of the prefill shape."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    entries = _ptxas_entries(dispatch.load_library()["log"],
+                             "ssm_scan_kernel")
+    require(len(entries) == 32,
+            f"ptxas reported {len(entries)} ssm_scan_kernel instantiations")
+    for e in entries:
+        require(e["stack"].startswith("0 bytes stack frame"),
+                f"{e['entry']} uses a stack frame: {e['stack']!r}")
+    clock = _sm_clock_hz()
+    row = None
+    for i, (name, b, s, di, st, dt_name, a_scale) in enumerate(SSM_CASES):
+        dtype = getattr(torch, dt_name)
+        x, dt, bc, cc, a = _ssm_inputs(b, s, di, st, dtype, a_scale, i)
+        got = ssm_scan(x, dt, bc, cc, a)
+        torch.cuda.synchronize()
+        want = ssm_scan_ref(x, dt, bc, cc, a)
+        require(got.dtype == dtype and got.shape == (b, s, di),
+                f"ssm_scan {name}: output {got.dtype} {tuple(got.shape)}")
+        if dtype == torch.float32:
+            err = _close(got, want, F32_ATOL, F32_RTOL, f"ssm_scan {name}")
+        else:
+            err = _close(got, want.to(dtype), BF16_ATOL, 0.0,
+                         f"ssm_scan {name}")
+        entry = {"phase": "kernel", "name": "ssm_scan", "case": name,
+                 "shape": [b, s, di, st], "dtype": dt_name,
+                 "a_scale": a_scale, "max_abs_err": err,
+                 "max_abs_y": float(want.abs().max()),
+                 "tol": ([F32_ATOL, F32_RTOL] if dtype == torch.float32
+                         else [BF16_ATOL, 0.0])}
+        if name == "carry_4096":
+            exact = _ssm_f64(x, dt, bc, cc, a)
+            entry.update(
+                kernel_max_abs_err_vs_f64=float((got - exact).abs().max()),
+                plain_max_abs_err_vs_f64=float((want - exact).abs().max()))
+            del exact
+        if name == "prefill":
+            entry.update(
+                ms=cuda_ms(lambda: ssm_scan(x, dt, bc, cc, a), 10),
+                plain_ms=cuda_ms(lambda: ssm_scan_ref(x, dt, bc, cc, a), 1),
+                # no single PyTorch call computes a selective scan
+                library_ms=None,
+                ptxas=[e for e in entries if "Li16E" in e["entry"]],
+                **ssm_bound(b, s, di, st, x.element_size(), clock))
+            row = entry
+        emit(entry)
+        del x, dt, bc, cc, a, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+#: falcon-mamba-7b: prefill batch x prompt; serve batch, prompt, generated
+SSM_PREFILL_SHAPE = (8, 2048)
+#: the prefill checks against the chunked plain path run at this batch:
+#: the plain path holds [B, S, di, st] float32 tensors (2.1 GB each here,
+#: 8.6 GB at batch 8), several at once, beside 29 GB of weights
+SSM_CHECK_BATCH = 2
+SSM_SERVE_SHAPE = (8, 128, 64)
+#: float32 prefill logits, the kernel path against the chunked plain
+#: path: the same recurrence, scanned in another order (the chunked
+#: path's associative scan) and y summed in another order, through 64
+#: layers
+SSM_PREFILL_F32_TOL = 1e-3
+#: the first generated token's logits against the prefill's, both in
+#: float32 compute with float32 states: the same function, the scan as
+#: 128 decode steps against the kernel's loop, through 64 layers
+SSM_SERVE_VS_PREFILL_TOL = 1e-3
+SSM_PROFILE_NAMES = ("ssm_scan_kernel", "nvjet", "gemm", "elementwise")
+
+
+def _rms(t) -> float:
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def phase_ssm_prefill(cfg, params) -> int:
+    """``make_prefill`` on falcon-mamba-7b at full size, batch 8 x 2,048;
+    returns the selective-scan launches of the timed (bf16) calls."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_prefill
+    (b, s), calls = SSM_PREFILL_SHAPE, 3
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    batch = {"tokens": tokens}
+    prefill = make_prefill(cfg)
+    prefill(params, batch)  # first call: the kernel's first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    walls = []
+    for _ in range(calls):
+        wall, logits = _timed(lambda: prefill(params, batch))
+        walls.append(wall)
+    launches = dispatch.launches["repro_ssm_scan"]
+    require(launches == cfg.n_layers * calls
+            and sum(dispatch.launches.values()) == launches,
+            f"ssm prefill: launches {dispatch.launches} over {calls} calls")
+    peak = torch.cuda.max_memory_allocated()
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            "ssm prefill: logits are not finite float32 [8, vocab]")
+    prof = _profile(lambda: prefill(params, batch), SSM_PROFILE_NAMES)
+    del logits
+    # the checks against the chunked plain path, at batch 2
+    sub = {"tokens": tokens[:SSM_CHECK_BATCH]}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    kern32 = make_prefill(cfg32)(params, sub)
+    plain32 = make_prefill(cfg32, attn_impl="dense")(params, sub)
+    err32 = float((kern32 - plain32).abs().max())
+    require(bool(torch.isfinite(kern32).all()) and err32 <= SSM_PREFILL_F32_TOL,
+            f"ssm prefill float32: kernel vs plain logits differ by {err32}")
+    kern = make_prefill(cfg)(params, sub)
+    plain = make_prefill(cfg, attn_impl="dense")(params, sub)
+    bf16_noise = {"max_abs": float((plain - plain32).abs().max()),
+                  "rms": _rms(plain - plain32)}
+    err = {"max_abs": float((kern - plain).abs().max()),
+           "rms": _rms(kern - plain)}
+    require(err["rms"] <= bf16_noise["rms"],
+            f"ssm prefill bf16: kernel vs plain logits differ by {err}, more "
+            f"than bf16 compute moves them ({bf16_noise})")
+    emit({"phase": "ssm_prefill", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": b, "prompt": s, "compute_dtype": "bfloat16",
+          "ssm_scan_launches_per_call": launches // calls,
+          "wall_s": walls, "tok_per_s": [b * s / w for w in walls],
+          "peak_mem_bytes": peak, "check_batch": SSM_CHECK_BATCH,
+          "logits_err_vs_plain": err, "bf16_vs_f32_logits": bf16_noise,
+          "f32_logits_max_abs_err_vs_plain": err32,
+          "f32_tol": SSM_PREFILL_F32_TOL, "profiled_call": prof})
+    return launches
+
+
+def phase_ssm_serve(cfg, params) -> None:
+    """The ``launch.serve`` loop on falcon-mamba-7b at full size, batch 8,
+    prompt 128, gen 64: the first token's logits against the prefill's in
+    float32, then the config's bf16, timed."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    (b, plen, gen), seed = SSM_SERVE_SHAPE, 0
+    kv_len = plen + gen
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab,
+                                                 size=(b, plen))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    first = {}
+
+    def observe(dbatch, logits):
+        if dbatch["index"] == plen - 1:
+            first["logits"] = logits.clone()
+
+    with torch.no_grad():
+        generate(cfg32, params, prompt, 1, observe=observe)
+    pre = make_prefill(cfg32)(params, {"tokens": prompt})
+    require(bool(torch.isfinite(first["logits"]).all()),
+            "ssm serve float32: logits not finite")
+    err_pre = float((first["logits"] - pre).abs().max())
+    require(err_pre <= SSM_SERVE_VS_PREFILL_TOL,
+            f"ssm serve float32: the first generated token's logits differ "
+            f"from the prefill's by {err_pre}")
+    del pre, first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = generate(cfg, params, prompt, gen)
+    # the SSM decode step has no hand-written kernel (nor has the
+    # reference's ssm_block_step)
+    require(sum(dispatch.launches.values()) == 0,
+            f"ssm serve: launches {dispatch.launches}")
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(toks.shape == (b, gen) and toks.min() >= 0
+            and toks.max() < cfg.vocab, f"ssm serve: tokens {toks.shape}")
+    step = make_serve_step(cfg, kv_len, b)
+    cache = res["cache"]
+    last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
+            "index": kv_len - 1}
+    prof = _profile(lambda: step(params, cache, last), SSM_PROFILE_NAMES)
+    emit({"phase": "ssm_serve", "arch": cfg.name, "compute_dtype": "bfloat16",
+          "batch": b, "prompt": plen, "gen": gen,
+          "kernel_launches_per_step": 0,
+          "cuda_kernels_per_step": prof["kernels_launched"],
+          "prompt_steps_s": res["prompt_s"], "gen_s": res["gen_s"],
+          "ms_per_decode_step": res["gen_s"] / gen * 1e3,
+          "gen_tok_per_s": b * gen / res["gen_s"], "peak_mem_bytes": peak,
+          "f32_first_token_logits_vs_prefill_max_abs": err_pre,
+          "f32_first_token_vs_prefill_tol": SSM_SERVE_VS_PREFILL_TOL,
+          "sample_row": toks[0][:16].tolist(), "profiled_step": prof})
+
+
+def phase_ssm() -> int:
+    """falcon-mamba-7b at full width and depth (64 layers, 7.27 B
+    parameters, random weights from seed 0): prefill, then serving;
+    returns the prefill's selective-scan launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    cfg = get_config("falcon-mamba-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = get_api(cfg).init(cfg, seed=0, device="cuda")
+    # the reference's analytic count (ArchConfig.param_count) leaves out
+    # A_log [di, st] and one [di] vector of every layer, and the final
+    # norm
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.param_count() + cfg.d_model + cfg.n_layers * (
+        cfg.d_inner * cfg.ssm_state + cfg.d_inner),
+        f"falcon-mamba-7b: {n_params} parameters")
+    emit({"phase": "ssm_init", "params": n_params,
+          "param_count_analytic": cfg.param_count(),
+          "allocated_before_init_bytes": before,
+          "allocated_after_init_bytes": torch.cuda.memory_allocated(),
+          "init_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    params = model.params()
+    launches = phase_ssm_prefill(cfg, params)
+    phase_ssm_serve(cfg, params)
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -1587,6 +1944,9 @@ KERNELS = [
     ("decode_attention", "repro_decode_attention",
      "src/repro_torch/kernels/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:72"),
+    ("ssm_scan", "repro_ssm_scan",
+     "src/repro_torch/kernels/csrc/ssm_scan.cu",
+     "src/repro/kernels/ssm_scan/kernel.py:55"),
 ]
 
 
@@ -1618,7 +1978,8 @@ def main(argv=None) -> int:
     phase_device()
     phase_build()
     attn_rows = {"flash_attention": phase_flash_kernel(),
-                 "decode_attention": phase_decode_kernel()}
+                 "decode_attention": phase_decode_kernel(),
+                 "ssm_scan": phase_ssm_kernel()}
     rows = phase_kernels()
     verify_rows = phase_verify_kernel()
     # the kernels line reports verify_shares at the audit shape, the
@@ -1652,6 +2013,7 @@ def main(argv=None) -> int:
         launches[key] = launches.get(key, 0) + count
     launches["repro_flash_attention"] = phase_prefill()
     launches["repro_decode_attention"] = phase_serve()
+    launches["repro_ssm_scan"] = phase_ssm()
     rows.update(attn_rows)
 
     kernels = []
@@ -1666,7 +2028,7 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             # SDPA for the attention kernels; no single PyTorch call
-            # computes the others
+            # computes the others (a selective scan included)
             "library_ms": row.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
-Counterpart of ``repro/configs/__init__.py`` for the dense family the
-port runs (the configs are the reference's, as data).  The reference's
-other architectures belong to later slices and raise
+Counterpart of ``repro/configs/__init__.py`` for the dense and SSM
+families the port runs (the configs are the reference's, as data).  The
+reference's other architectures belong to later slices and raise
 ``NotImplementedError`` naming their ROADMAP item.  (The reference's
 ``configs/base.py`` holds the dry-run's shape cells and JAX input
 stand-ins; the trainer needs none of it.)
@@ -15,6 +15,7 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 _MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "llama3.2-1b": "llama32_1b",
     "tinyllama-1.1b": "tinyllama_11b",
     "qwen1.5-0.5b": "qwen15_05b",
@@ -25,7 +26,6 @@ _MODULES = {
 LATER_ARCHS = {
     "qwen3-moe-235b-a22b": "the MoE family (ROADMAP queue 1, item 6)",
     "grok-1-314b": "the MoE family (ROADMAP queue 1, item 6)",
-    "falcon-mamba-7b": "the SSM family (ROADMAP queue 1, item 3)",
     "recurrentgemma-9b": "the hybrid family (ROADMAP queue 1, item 4)",
     "whisper-large-v3": "the enc-dec family (ROADMAP queue 1, item 6)",
     "qwen2-vl-2b": "the embeddings frontend (ROADMAP queue 1, item 6)",

@@ -15,18 +15,24 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
+def _walk(node, prefix, out) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], prefix + (k,), out)
+    else:
+        out.append((prefix, node))
+
+
 def flatten_with_path(tree) -> list[tuple[tuple[str, ...], Any]]:
-    """``[(path, leaf), ...]`` with dict keys sorted at every level."""
-    out = []
+    """``[(path, leaf), ...]`` with dict keys sorted at every level.
 
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + (k,))
-        else:
-            out.append((prefix, node))
-
-    walk(tree, ())
+    The walk is a module-level function: a nested one that calls itself
+    is a reference cycle holding the list, so the leaves would outlive
+    the caller's last reference until the garbage collector runs (5.5
+    GB of layers drawn by ``transformer.init`` at falcon-mamba-7b's
+    size)."""
+    out: list = []
+    _walk(tree, (), out)
     return out
 
 

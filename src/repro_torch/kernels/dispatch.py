@@ -79,6 +79,10 @@ _SIGNATURES = {
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 5,
                                *(ctypes.c_longlong,) * 8, ctypes.c_float,
                                ctypes.c_int, ctypes.c_int, _P),
+    # x, dt, bc, cc, a, y, b, s, di, st, bc/cc strides (b, s), dtype,
+    # stream
+    "repro_ssm_scan": (*(_P,) * 6, *(ctypes.c_int,) * 4,
+                       *(ctypes.c_longlong,) * 4, ctypes.c_int, _P),
 }
 
 #: element-type codes of the float kernels' C interface

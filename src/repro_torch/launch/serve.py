@@ -8,11 +8,14 @@ and ``--device`` (the card unless ``cpu``): random weights from
 ``--seed``, a random prompt from ``numpy``'s ``RandomState(seed)``, the
 KV cache filled by one decode step per prompt token (as the reference
 does; ``make_prefill`` is the separate full-forward entry), then
-``--gen`` timed greedy steps, and the reference's print line.  Every
-step runs the decode-attention kernel on the card.  The index stays a
-host int and the tokens stay on the device until the end, so a step
-does not wait for the card.  ``--tp`` above 1 (sharded serving) and the
-embeddings frontend are later slices and raise.
+``--gen`` timed greedy steps, and the reference's print line.  On the
+card a dense model's step runs the decode-attention kernel in every
+layer; an SSM model's step (``--arch falcon-mamba-7b``) runs no
+hand-written kernel, as the reference's ``ssm_block_step`` is plain
+jnp.  The index stays a host int and the tokens stay on the device
+until the end, so a step does not wait for the card.  ``--tp`` above 1
+(sharded serving) and the embeddings frontend are later slices and
+raise.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ step's parts for a profiler: ``fwd_bwd``, ``secure_aggregate`` and
 
 ``make_prefill`` and ``make_serve_step`` are the counterparts of the
 reference's (:432-470) without ``jit`` or a mesh: plain callables on one
-device, run without autograd.
+device, run without autograd.  ``attn_impl`` reaches every block: the
+attention rule and the SSM block's scan rule (``models/ssm.py``).
 
 Later slices: MPC-FSDP (``fsdp=True``, or ``fsdp=None`` resolving to it
 for a model whose fp32 state does not fit 60 % of 16 GB), top-k
@@ -35,6 +36,7 @@ from repro_torch.fl.spmd import (party_count, party_index,
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import get_api
+from repro_torch.models.transformer import cache_batch_and_length
 from repro_torch.optim import AdamWConfig, adamw_update
 
 PROTOCOLS = ("two_phase", "p2p", "plain")
@@ -215,8 +217,9 @@ def make_prefill(cfg: ArchConfig, attn_impl: str = "auto", device="cuda"):
     """``prefill(params, batch) -> logits [B, V]`` (float32, last
     position).  ``params``: the model's ``params()`` tree;
     ``batch["tokens"]`` ``[B, S]`` (numpy or a tensor) is moved to the
-    step's device.  ``attn_impl="auto"`` runs the flash kernel on the
-    card."""
+    step's device.  ``attn_impl="auto"`` runs the flash kernel (dense
+    family) or the selective-scan kernel (SSM family) on the card;
+    ``"dense"`` their plain paths."""
     api = get_api(cfg)
     device = dispatch.resolve_device(device)
 
@@ -236,7 +239,8 @@ class ServeStep:
     greedy decode step (``argmax`` of the logits, the first index on a
     tie, as ``jnp.argmax``).  ``params``: the model's ``params()`` tree;
     ``cache``: ``init_cache(params, cfg, batch, kv_len)`` of the model
-    API, updated in place; ``dbatch``: ``tokens`` ``[B, 1]`` on the
+    API (a KV cache, or SSM states), updated in place; ``dbatch``:
+    ``tokens`` ``[B, 1]`` on the
     step's device, ``index`` a host int.
 
     ``observe``: if set, ``observe(dbatch, logits)`` is called with each
@@ -253,11 +257,11 @@ class ServeStep:
         self.observe = None
 
     def __call__(self, params, cache, dbatch):
-        k = cache["groups"]["b0_attn"]["k"]
-        if k.shape[1] != self.batch or k.shape[3] != self.kv_len:
-            raise ValueError(f"cache of batch {k.shape[1]} × length "
-                             f"{k.shape[3]}; the step serves {self.batch} "
-                             f"× {self.kv_len}")
+        batch, length = cache_batch_and_length(cache)
+        if batch != self.batch or length not in (None, self.kv_len):
+            raise ValueError(f"cache of batch {batch} × length {length}; "
+                             f"the step serves {self.batch} × "
+                             f"{self.kv_len}")
         with torch.no_grad():
             logits, cache = self.api.decode_step(params, cache, dbatch,
                                                  self.cfg)

@@ -1,8 +1,9 @@
 """Model API registry: family -> (init, loss, prefill, cache, decode).
 
-Counterpart of ``repro/models/registry.py`` for the dense family: the
-transformer API's ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
-``decode_step``.  The other families raise ``NotImplementedError``
+Counterpart of ``repro/models/registry.py`` for the dense and SSM
+families: the transformer API's ``init``, ``loss_fn``, ``prefill``,
+``init_cache`` and ``decode_step`` (the reference routes ``ssm`` through
+the same API).  The other families raise ``NotImplementedError``
 (``transformer.check_family``).
 """
 

@@ -1,35 +1,40 @@
-"""Decoder-only LM of the dense family, as an ``nn.Module``.
+"""Decoder-only LM of the dense and SSM families, as an ``nn.Module``.
 
 Counterpart of ``repro/models/transformer.py`` for the dense family
-(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b): one parameter schema and
-the training entry points.
+(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b) and the SSM family
+(falcon-mamba-7b, ``models/ssm.py``): one parameter schema and the
+training and serving entry points.
 
 * ``init(cfg, seed, device)`` — a ``Transformer`` whose parameters are
   registered under the reference's tree keys, with the layers
   **stacked**: every leaf under ``layers`` has a leading ``L`` dim, as
   the reference's ``lax.scan`` stack has.  So the gradient tree has the
-  reference's 14 leaves for qwen1.5-0.5b, with the same key paths and
-  element order, and the secure aggregation's per-leaf seeds
-  (``fl.spmd.leaf_seed_tag``) and Philox streams are the reference's.
+  reference's 14 leaves for qwen1.5-0.5b (13 for falcon-mamba-7b),
+  with the same key paths and element order, and the secure
+  aggregation's per-leaf seeds (``fl.spmd.leaf_seed_tag``) and Philox
+  streams are the reference's.
 * ``loss_fn(params, batch, cfg)`` — next-token NLL over a nested dict of
   tensors (``model.params()``, or detached copies for local steps).
 * ``from_reference`` / ``to_reference`` — the reference's parameter
   tree, as numpy arrays keyed by its leaf paths, into and out of the
   port's model.
 * ``prefill(params, batch, cfg)`` — the last position's logits of a
-  full forward (the flash kernel on the card), as the reference's;
-* ``init_cache`` / ``decode_step`` — the KV cache in the reference's
-  layout and one greedy-serving step against it.  The step updates the
-  cache in place (the reference returns a new one) and runs its
+  full forward (the flash kernel, or the selective-scan kernel, on the
+  card), as the reference's;
+* ``init_cache`` / ``decode_step`` — the decode state in the reference's
+  layout (a KV cache per attention layer, conv and SSM states per SSM
+  layer) and one greedy-serving step against it.  The step updates the
+  state in place (the reference returns a new one) and runs its
   attention through the decode kernel (``kernels/decode_attention``),
-  where the reference computes it inline (ROADMAP queue 3, finding 4).
+  where the reference computes it inline (ROADMAP queue 3, finding 4);
+  the SSM step has no kernel, in either package.
 
 The loop over layers takes each stacked leaf apart once with ``unbind``,
 so backward writes each leaf's gradient as one ``[L, ...]`` stack.
 ``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` while
 autograd records: the backward recomputes the layer's forward with the
-same operations, so no number changes.  The MoE, SSM, hybrid and
-enc-dec families and sliding windows are later slices and raise
+same operations, so no number changes.  The MoE, hybrid and enc-dec
+families and sliding windows are later slices and raise
 ``NotImplementedError``.
 """
 
@@ -47,6 +52,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (combine_partials,
                                                   decode_attention,
                                                   decode_attention_ref)
+from . import ssm
 from .attention import attention
 from .common import ArchConfig, dtype_of, shard
 from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
@@ -56,20 +62,20 @@ from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
 #: families of the reference that later slices of the port carry over
 LATER_FAMILIES = {
     "moe": "the MoE family (ROADMAP queue 1, item 6)",
-    "ssm": "the SSM family with ssm_scan (ROADMAP queue 1, item 3)",
     "hybrid": "the hybrid family with lru_scan (ROADMAP queue 1, item 4)",
     "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense LM."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense or an SSM
+    LM."""
     if cfg.enc_dec:
         key = "enc_dec"
     elif cfg.n_experts:
         key = "moe"
-    elif cfg.family in ("ssm", "hybrid"):
-        key = cfg.family
+    elif cfg.family == "hybrid":
+        key = "hybrid"
     elif cfg.frontend != "tokens":
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
@@ -144,10 +150,18 @@ def attn_apply(p, x, cfg: ArchConfig, positions, impl: str = "auto",
     return o @ p["wo"].to(x.dtype)
 
 
-def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
-    if kind != "attn":
+def _check_kind(kind: str) -> None:
+    if kind not in ("attn", "ssm"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+            f"block kind {kind!r} is not ported yet ('attn' and 'ssm' "
+            "only)")
+
+
+def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
+    _check_kind(kind)
+    if kind == "ssm":
+        return {"ln": norm_init(cfg, dtype, device),
+                "ssm": ssm.ssm_block_init(gen, cfg, dtype, device)}
     return {"ln1": norm_init(cfg, dtype, device),
             "attn": attn_init(gen, cfg, dtype, device),
             "ln2": norm_init(cfg, dtype, device),
@@ -156,9 +170,10 @@ def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
 
 def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
                 impl: str = "auto"):
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+    _check_kind(kind)
+    if kind == "ssm":
+        return x + ssm.ssm_block_apply(p["ssm"], apply_norm(cfg, p["ln"], x),
+                                       cfg, impl=impl)
     h = x + attn_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cfg,
                        positions, impl=impl)
     return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
@@ -171,8 +186,10 @@ def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
 def stack_plan(cfg: ArchConfig) -> tuple[tuple[str, ...], int,
                                          tuple[str, ...]]:
     """Returns (group_kinds, n_groups, tail_kinds), as the reference; the
-    dense family (the one ``check_family`` lets through) stacks one
-    ``attn`` block per layer."""
+    families ``check_family`` lets through stack one block per layer,
+    ``ssm`` or ``attn``."""
+    if cfg.family == "ssm":
+        return ("ssm",), cfg.n_layers, ()
     return ("attn",), cfg.n_layers, ()
 
 
@@ -192,7 +209,7 @@ def _register(module: nn.Module, tree: dict) -> None:
 
 
 class Transformer(nn.Module):
-    """A dense LM whose parameters sit under the reference's tree keys
+    """An LM whose parameters sit under the reference's tree keys
     (``embed.table``, ``layers.b0_attn.attn.wq`` [L, d, h·dh], ...)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
@@ -218,7 +235,11 @@ def _model_device(device) -> torch.device:
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     """A ``Transformer`` with weights drawn from ``seed`` on ``device``,
     with the reference's scales (embedding 0.02, projections
-    ``1/sqrt(fan_in)``, norm scales 1, biases 0)."""
+    ``1/sqrt(fan_in)``, norm scales 1, biases 0; the SSM block's as the
+    reference's ``ssm_block_init``).
+
+    Each stacked leaf is allocated once and filled layer by layer, in
+    the order the layers are drawn: the layers never exist twice."""
     check_family(cfg)
     device = _model_device(device)
     dtype = dtype_of(cfg, "param_dtype")
@@ -226,12 +247,20 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     # a model on the meta device (shapes only) draws nothing
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(int(seed)))
-    groups = [{f"b{i}_{kind}": block_init(gen, cfg, dtype, kind, device)
-               for i, kind in enumerate(group_kinds)}
-              for _ in range(n_groups)]
-    paths = [p for p, _ in flatten_with_path(groups[0])]
-    stacked = [torch.stack([dict(flatten_with_path(g))[p] for g in groups])
-               for p in paths]
+    paths, stacked = None, None
+    for layer in range(n_groups):
+        group = flatten_with_path(
+            {f"b{i}_{kind}": block_init(gen, cfg, dtype, kind, device)
+             for i, kind in enumerate(group_kinds)})
+        if stacked is None:
+            paths = [p for p, _ in group]
+            stacked = [torch.empty((n_groups,) + tuple(leaf.shape),
+                                   dtype=leaf.dtype, device=device)
+                       for _, leaf in group]
+        if device.type != "meta":
+            for dst, (_, leaf) in zip(stacked, group):
+                dst[layer].copy_(leaf)
+        del group
     tree: dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype, device),
         "layers": unflatten(paths, stacked),
@@ -355,15 +384,35 @@ def init_cache(cfg: ArchConfig, batch: int, kv_len: int,
                dtype=CACHE_DTYPE, device="cuda"):
     """Zeroed decode state: ``{"groups": {"b0_attn": {"k", "v"}}}``, each
     ``[L, B, Hkv, kv_len, Dh]`` of ``dtype``, on ``device`` (the card
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``).  An SSM layer group holds
+    ``{"conv": [L, B, k-1, di], "ssm": [L, B, di, st]}`` instead, both
+    float32 whatever ``dtype`` (as the reference's), whose size does not
+    grow with ``kv_len``."""
     check_family(cfg)
     device = dispatch.resolve_device(device)
     group_kinds, n_groups, _ = stack_plan(cfg)
-    shape = (n_groups, batch, cfg.n_kv_heads, kv_len, cfg.d_head)
-    return {"groups": {f"b{i}_{kind}": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for i, kind in enumerate(group_kinds)}}
+
+    def one(kind):
+        if kind == "ssm":
+            return {name: torch.zeros((n_groups,) + tuple(t.shape),
+                                      dtype=t.dtype, device=device)
+                    for name, t in ssm.ssm_init_state(
+                        cfg, batch, device="meta").items()}
+        shape = (n_groups, batch, cfg.n_kv_heads, kv_len, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {"groups": {f"b{i}_{kind}": one(kind)
+                       for i, kind in enumerate(group_kinds)}}
+
+
+def cache_batch_and_length(cache) -> tuple[int, int | None]:
+    """The batch of a cache from ``init_cache``, and the length of its KV
+    buffers (``None`` for a model whose state does not grow: SSM)."""
+    group = next(iter(cache["groups"].values()))
+    if "k" in group:
+        return group["k"].shape[1], group["k"].shape[3]
+    return group["ssm"].shape[1], None
 
 
 def _decode_attn_block(p, x, cache_kv, cfg: ArchConfig, index: int,
@@ -399,9 +448,11 @@ def _decode_attn_block(p, x, cache_kv, cfg: ArchConfig, index: int,
 
 def _decode_block(p, x, cache_kv, cfg: ArchConfig, index: int, positions,
                   kind: str, impl: str):
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (dense 'attn' only)")
+    _check_kind(kind)
+    if kind == "ssm":
+        y, _ = ssm.ssm_block_step(p["ssm"], apply_norm(cfg, p["ln"], x),
+                                  cache_kv, cfg)
+        return x + y
     h = x + _decode_attn_block(p["attn"], apply_norm(cfg, p["ln1"], x),
                                cache_kv, cfg, index, positions, impl)
     inner = apply_norm(cfg, p["ln2"], h[:, None, :])
@@ -415,7 +466,8 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
     Returns (logits ``[B, V]`` float32, the cache, updated in place).
     ``impl``: ``"auto"`` runs the decode-attention wrapper (the CUDA
     kernel on the card, its plain version on the CPU); ``"dense"`` its
-    plain version on any device.
+    plain version on any device.  An SSM layer's step is plain PyTorch
+    whatever ``impl`` (the reference has no kernel for it).
     """
     check_family(cfg)
     if impl not in ("auto", "dense"):
@@ -436,7 +488,8 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
         gp = unflatten(paths, layer_leaves)
         for i, kind in enumerate(group_kinds):
             name = f"b{i}_{kind}"
-            kv = {key: cache["groups"][name][key][layer] for key in ("k", "v")}
+            kv = {key: buf[layer]
+                  for key, buf in cache["groups"][name].items()}
             x = _decode_block(gp[name], x, kv, cfg, index, positions, kind,
                               impl)
     x = apply_norm(cfg, params["final_norm"], x[:, None, :])[:, 0]

@@ -74,8 +74,11 @@ def _entry_points():
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import simple_nn, transformer
     smoke = get_config("qwen1.5-0.5b", smoke=True)
+    ssm_smoke = get_config("falcon-mamba-7b", smoke=True)
     return {
         "make_prefill": lambda: steps.make_prefill(smoke),
+        "make_prefill_ssm": lambda: steps.make_prefill(ssm_smoke),
+        "init_cache_ssm": lambda: transformer.init_cache(ssm_smoke, 2, 8),
         "make_serve_step": lambda: steps.make_serve_step(smoke, 8, 2),
         "init_cache": lambda: transformer.init_cache(smoke, 2, 8),
         "serve": lambda: serve.run(serve.parse_args(["--smoke"])),
@@ -106,7 +109,8 @@ def _entry_points():
                                   "make_train_step", "transformer",
                                   "train", "elect_committee_spmd",
                                   "make_prefill", "make_serve_step",
-                                  "init_cache", "serve"])
+                                  "init_cache", "serve", "make_prefill_ssm",
+                                  "init_cache_ssm"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -160,7 +164,6 @@ def _train_knob(name):
         "pallas": lambda: attention.attention(q, q, q, smoke, impl="pallas"),
         "moe": lambda: transformer.init(dataclasses.replace(
             smoke, n_experts=4, top_k=2, d_ff_expert=32)),
-        "ssm": lambda: get_config("falcon-mamba-7b"),
         "hybrid": lambda: transformer.init(dataclasses.replace(
             smoke, family="hybrid")),
         "enc_dec": lambda: get_config("whisper-large-v3"),
@@ -181,7 +184,7 @@ def _train_knob(name):
     dict(vss=True, cohort=3), dict(cohort=3),
     dict(reelect_each_round=True, cohort=3), dict(compress_topk=0.1),
     dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
-    "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "ssm", "hybrid",
+    "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "hybrid",
     "enc_dec", "prefill", "ckpt_dir", "starcoder2", "layernorm", "window",
     "serve_tp",
 ])
@@ -194,6 +197,25 @@ def test_later_slice_knobs_raise_not_implemented(knob):
     from repro_torch.fl import FedAvgConfig
     with pytest.raises(NotImplementedError, match="later|not ported"):
         FedAvgConfig(n_parties=4, **knob)
+
+
+def test_falcon_mamba_is_ported_and_its_training_needs_mpc_fsdp():
+    """The SSM family serves (falcon-mamba-7b loads at full size); its
+    7.26 B parameters take the MPC-FSDP layout, a later slice."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = get_config("falcon-mamba-7b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner,
+            cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv, cfg.vocab,
+            cfg.tie_embeddings) == ("ssm", 64, 4096, 8192, 16, 256, 4,
+                                    65024, False)
+    assert cfg.param_count() == 7_263_748_096
+    transformer.check_family(cfg)
+    assert transformer.stack_plan(cfg) == (("ssm",), 64, ())
+    assert steps.needs_fsdp(cfg)
+    with pytest.raises(NotImplementedError, match="MPC-FSDP.*ROADMAP queue"):
+        steps.make_train_step(cfg, device="cpu")
 
 
 def test_later_slice_transport_options_raise_not_implemented():

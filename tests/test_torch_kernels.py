@@ -32,6 +32,7 @@ from repro_torch.kernels.reconstruct import reconstruct
 from repro_torch.kernels.shamir import (shamir_reconstruct, shamir_share,
                                         shamir_share_batch)
 from repro_torch.kernels.share_gen import share_gen, share_gen_batch
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.verify_shares import verify_shares
 
 P = 0x7FFFFFFF
@@ -151,11 +152,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     q = x[:, :32].reshape(1, 2, 2, 16)
     flash_attention(q, q, q)
     decode_attention(q[:, :, 0], q, q, kv_len=1)
+    xs = x[:1, :32].reshape(1, 2, 16)
+    ssm_scan(xs, xs.abs(), xs[..., :4], xs[..., 4:8], -torch.ones(16, 4))
     assert set(dispatch.launches) == {
         "repro_share_gen_batch", "repro_shamir_share_batch",
         "repro_reconstruct", "repro_shamir_reconstruct",
         "repro_verify_shares", "repro_share_gen", "repro_shamir_share",
-        "repro_flash_attention", "repro_decode_attention"}
+        "repro_flash_attention", "repro_decode_attention",
+        "repro_ssm_scan"}
     assert all(v == 0 for v in dispatch.launches.values())
 
 
