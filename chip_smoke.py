@@ -10,16 +10,27 @@ non-zero without the final result line):
 
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   every instantiation of the attention kernels and of ``lru_scan``
+   must show no stack frame and no spill in ptxas's lines;
 3. attention kernels: ``flash_attention`` against its plain version on
    the same CUDA tensors at qwen1.5-0.5b's prefill shape [8, 16, 2048,
    64] causal (bf16 and float32), a ragged Sq = Skv = 1,000, the GQA
    groups of tinyllama-1.1b (32, 4) and llama3.2-1b (32, 8), a window of
-   64, Sq < Skv and D = 128; ``decode_attention`` at [8, 16, 64] against
-   a cache of S = 640 at kv_len 1 / 300 / 640 (bf16 and float32 queries
-   on a bf16 cache, and a float32 cache) and the GQA group (32, 4);
-   float32 outputs to 2e-5 absolute + 1e-4 relative, bf16 outputs to
-   2e-2; median times from CUDA events beside the bound, the plain
-   version's time and SDPA's (timed for the table only); ``ssm_scan``
+   64, Sq < Skv and D = 128, and at recurrentgemma-9b's D = 256 with 16
+   query heads on one KV head (its prefill shape [8, 16, 2048, 256] in
+   window 2,048, ragged lengths, a binding window of 256);
+   ``decode_attention`` at [8, 16, 64] against a cache of S = 640 at
+   kv_len 1 / 300 / 640 (bf16 and float32 queries on a bf16 cache, and
+   a float32 cache), the GQA group (32, 4), and group 16 × D 256 against
+   S = 2,048 at kv_len 1 / 192 / 1,000 / 2,048; float32 outputs to 2e-5
+   absolute + 1e-4 relative, flash's bf16 outputs to one bf16 step of
+   each value (2^-7 relative) + 2e-5; median times from
+   CUDA events beside the bound, the plain version's time and SDPA's
+   (timed for the table only); ``lru_scan`` (the RG-LRU recurrence) at
+   recurrentgemma-9b's prefill shape [8, 2048, 4096] in float32 and
+   bf16, a ragged [3, 1000, 1000] and a 4,096-step carry at a = 0.9999
+   (also against a float64 scan), each ``torch.equal`` to its plain
+   version, with its time and bound; ``ssm_scan``
    (the Mamba-1 selective scan) at falcon-mamba-7b's prefill shape
    [8, 2048, 8192], st 16 (bf16 and float32), a ragged S = di = 1,000,
    st 4, and 4,096 steps with small |A| (the carry), with ptxas's
@@ -99,7 +110,23 @@ non-zero without the final result line):
     prefill's in float32 compute (1e-3), then in bf16 ms per step, tok/s,
     peak memory and one profiled step (the SSM step runs no hand-written
     kernel, as the reference's);
-17. summary: a ``{"kernels": [...]}`` line, then the result line.
+17. hybrid_prefill: recurrentgemma-9b at full width and depth (38
+    layers, 10,444,984,320 parameters, random weights from seed 0),
+    ``make_prefill`` at batch 8 x 2,048 in bf16: 26 ``lru_scan`` and 12
+    flash launches a call, wall time, tok/s, peak memory and one
+    profiled call; the logits against the plain path (chunked scan,
+    plain attention) at batch 2 (float32 compute to 1e-3; bf16 within
+    the bf16-vs-float32 RMS);
+18. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
+    prompt 128, gen 64: the first generated token's float32 logits
+    against the prefill's with a float32 cache (1e-3) and with the bf16
+    cache (5e-2), then in bf16 12 decode launches a step, ms per step,
+    tok/s, peak memory and one profiled step;
+19. ring: the smoke config (window 8) served through the kernels for 24
+    steps, so its 8-slot ring wraps twice, each step's float32 logits
+    against the plain step fed the same tokens (1e-4);
+20. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+    at D = 256, under ``d256``), then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
@@ -1186,6 +1213,11 @@ def phase_train() -> dict:
 BF16_FLOP_PER_S = 989e12
 #: attention tolerances (float32 output; bfloat16 output)
 F32_ATOL, F32_RTOL, BF16_ATOL = 2e-5, 1e-4, 2e-2
+#: the flash kernel's bfloat16 output against its plain version: both
+#: round a float32 result to bf16 at nearest, so they may part by one bf16
+#: step of the value (at most 2^-7 of it), plus the float32 limit where the
+#: value is near 0
+BF16_STEP_RTOL = 2.0 ** -7
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -1211,9 +1243,19 @@ def _close(got, want, atol: float, rtol: float, what: str) -> float:
 
 
 FLASH_CASES = [
-    # (name, b, hq, hkv, sq, skv, d, causal, window, dtype); the first is
-    # qwen1.5-0.5b's prefill at batch 8 x 2,048, the main path's shape
+    # (name, b, hq, hkv, sq, skv, d, causal, window, dtype); "prefill" is
+    # qwen1.5-0.5b's prefill at batch 8 x 2,048, "rg_prefill"
+    # recurrentgemma-9b's (MQA, group 16, D 256, window 2,048): the main
+    # paths' shapes, both timed
     ("prefill", 8, 16, 16, 2048, 2048, 64, True, 0, "bfloat16"),
+    ("rg_prefill", 8, 16, 1, 2048, 2048, 256, True, 2048, "bfloat16"),
+    ("rg_prefill_f32", 2, 16, 1, 2048, 2048, 256, True, 2048, "float32"),
+    ("rg_ragged", 2, 16, 1, 1000, 1000, 256, True, 0, "float32"),
+    ("rg_ragged_bf16", 2, 16, 1, 1000, 1000, 256, True, 0, "bfloat16"),
+    # the window binds: query i sees keys i - 255 .. i
+    ("rg_window256", 2, 16, 1, 1024, 1024, 256, True, 256, "float32"),
+    ("rg_window256_bf16", 2, 16, 1, 1024, 1024, 256, True, 256,
+     "bfloat16"),
     ("prefill_f32", 8, 16, 16, 2048, 2048, 64, True, 0, "float32"),
     ("ragged", 2, 16, 16, 1000, 1000, 64, True, 0, "float32"),
     ("ragged_bf16", 2, 16, 16, 1000, 1000, 64, True, 0, "bfloat16"),
@@ -1227,12 +1269,13 @@ FLASH_CASES = [
 
 def phase_flash_kernel() -> dict:
     """``flash_attention`` against its plain version on the same CUDA
-    tensors; returns the timing row of the prefill shape."""
+    tensors; returns the timing rows of the two prefill shapes, by case
+    name."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    row = None
+    rows = {}
     for name, b, hq, hkv, sq, skv, d, causal, window, dt in FLASH_CASES:
         dtype = getattr(torch, dt)
         gen = torch.Generator(device="cuda").manual_seed(sq * hq + window)
@@ -1246,67 +1289,84 @@ def phase_flash_kernel() -> dict:
         torch.cuda.synchronize()
         want = attention_ref(q, k, v, causal=causal, window=window)
         require(got.dtype == dtype, f"flash {name}: output {got.dtype}")
-        if dtype == torch.float32:
-            err = _close(got, want, F32_ATOL, F32_RTOL, f"flash {name}")
-        else:
-            err = _close(got, want.to(dtype), BF16_ATOL, 0.0, f"flash {name}")
+        atol, rtol = ((F32_ATOL, F32_RTOL) if dtype == torch.float32
+                      else (F32_ATOL, BF16_STEP_RTOL))
+        want = want.to(dtype).float()
+        err = _close(got, want, atol, rtol, f"flash {name}")
+        # the largest share of its limit that an element uses
+        share = float(((got.float() - want).abs()
+                       / (atol + rtol * want.abs())).max())
         del want
         entry = {"phase": "kernel", "name": "flash_attention", "case": name,
                  "shape": [b, hq, hkv, sq, skv, d], "causal": causal,
                  "window": window, "dtype": dt, "max_abs_err": err,
-                 "tol": ([F32_ATOL, F32_RTOL] if dtype == torch.float32
-                         else [BF16_ATOL, 0.0])}
-        if name == "prefill":
+                 "tol": [atol, rtol], "tol_share": share}
+        if name in ("prefill", "rg_prefill"):
             elt = q.element_size()
             nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
             flops = 4 * b * hq * d * visible_pairs(sq, skv, causal, window)
             b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            # Sq = Skv and a window of at least Skv: SDPA's is_causal mask
+            # is the same mask; its k and v are expanded to Hq heads
+            ke = k.expand(b, hq, skv, d)
+            ve = v.expand(b, hq, skv, d)
             entry.update(
-                ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                           10),
-                plain_ms=cuda_ms(lambda: attention_ref(q, k, v,
-                                                       causal=causal), 3),
-                # Sq = Skv: SDPA's is_causal mask is the same mask
+                ms=cuda_ms(lambda: flash_attention(
+                    q, k, v, causal=causal, window=window), 10),
+                plain_ms=cuda_ms(lambda: attention_ref(
+                    q, k, v, causal=causal, window=window), 3),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 10),
+                    q, ke, ve, is_causal=True), 10),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
-            row = entry
+            rows[name] = entry
+            del ke, ve
         emit(entry)
         del q, k, v, got
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 DECODE_CASES = [
-    # (b, hq, hkv, s, kv_len, q dtype, cache dtype); the serve path's
-    # shape is batch 8, 16 heads, D 64 against S = 640
-    (8, 16, 16, 640, 1, "bfloat16", "bfloat16"),
-    (8, 16, 16, 640, 300, "bfloat16", "bfloat16"),
-    (8, 16, 16, 640, 640, "bfloat16", "bfloat16"),
-    (8, 16, 16, 640, 1, "float32", "bfloat16"),
-    (8, 16, 16, 640, 300, "float32", "bfloat16"),
-    (8, 16, 16, 640, 640, "float32", "bfloat16"),
-    (8, 16, 16, 640, 300, "float32", "float32"),
-    (8, 32, 4, 640, 300, "float32", "bfloat16"),
-    (8, 32, 4, 640, 640, "bfloat16", "bfloat16"),
+    # (b, hq, hkv, s, d, kv_len, q dtype, cache dtype); qwen1.5-0.5b's
+    # serve path is batch 8, 16 heads, D 64 against S = 640;
+    # recurrentgemma-9b's is batch 8, 16 query heads on one KV head (group
+    # 16), D 256, against a window of S = 2,048 (64-key tiles)
+    (8, 16, 16, 640, 64, 1, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 64, 300, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 64, 640, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 64, 1, "float32", "bfloat16"),
+    (8, 16, 16, 640, 64, 300, "float32", "bfloat16"),
+    (8, 16, 16, 640, 64, 640, "float32", "bfloat16"),
+    (8, 16, 16, 640, 64, 300, "float32", "float32"),
+    (8, 32, 4, 640, 64, 300, "float32", "bfloat16"),
+    (8, 32, 4, 640, 64, 640, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 1, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 192, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 2048, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 192, "float32", "bfloat16"),
+    (8, 16, 1, 2048, 256, 1000, "float32", "float32"),
 ]
+#: the timed decode rows: (d, kv_len) of the bf16 serve shapes, qwen's
+#: longest step and recurrentgemma-9b's full window (the steady state of
+#: long serving)
+DECODE_TIMED = {(64, 640): "qwen", (256, 2048): "rg"}
 
 
 def phase_decode_kernel() -> dict:
     """``decode_attention`` against its plain version on the same CUDA
     tensors (the partials acc, m, l, and the normalized output: float32
     outputs of exact float32 copies of the inputs, so the float32
-    tolerance holds for every input type); returns the timing row of the
-    serve path's longest step (kv_len 640, bf16)."""
+    tolerance holds for every input type); returns the timing rows of
+    the serve paths' longest steps (bf16), by ``DECODE_TIMED``'s name."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (combine_partials,
                                                       decode_attention,
                                                       decode_attention_partial,
                                                       decode_attention_ref)
-    d = 64
-    row = None
-    for b, hq, hkv, s, kv_len, qdt, kvdt in DECODE_CASES:
+    from repro_torch.kernels.decode_attention.kernel import block_keys
+    rows = {}
+    for b, hq, hkv, s, d, kv_len, qdt, kvdt in DECODE_CASES:
         gen = torch.Generator(device="cuda").manual_seed(kv_len + hq)
         q = torch.randn((b, hq, d), device="cuda", generator=gen
                         ).to(getattr(torch, qdt))
@@ -1314,7 +1374,8 @@ def phase_decode_kernel() -> dict:
                         ).to(getattr(torch, kvdt))
         v = torch.randn((b, hkv, s, d), device="cuda", generator=gen
                         ).to(getattr(torch, kvdt))
-        what = f"decode [{b},{hq},{hkv},{s}] kv_len {kv_len} {qdt}/{kvdt}"
+        what = (f"decode [{b},{hq},{hkv},{s},{d}] kv_len {kv_len} "
+                f"{qdt}/{kvdt}")
         got = decode_attention_partial(q, k, v, kv_len=kv_len)
         torch.cuda.synchronize()
         want = decode_attention_ref(q, k, v, kv_len=kv_len)
@@ -1325,31 +1386,37 @@ def phase_decode_kernel() -> dict:
                      F32_ATOL, F32_RTOL, f"{what} output")
         entry = {"phase": "kernel", "name": "decode_attention",
                  "shape": [b, hq, hkv, s, d], "kv_len": kv_len,
-                 "q_dtype": qdt, "cache_dtype": kvdt, "max_abs_err": err,
+                 "block_k": block_keys(hq // hkv, d), "q_dtype": qdt,
+                 "cache_dtype": kvdt, "max_abs_err": err,
                  "tol": [F32_ATOL, F32_RTOL]}
-        if (kv_len, qdt, kvdt, hq) == (640, "bfloat16", "bfloat16", 16):
+        timed = DECODE_TIMED.get((d, kv_len))
+        if timed and (qdt, kvdt, hq) == ("bfloat16", "bfloat16", 16):
             nbytes = (q.element_size() * b * hq * d
                       + k.element_size() * 2 * b * hkv * kv_len * d
                       + 4 * (b * hq * d + 2 * b * hq))
             flops = 4 * b * hq * kv_len * d
             b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-            q1, kc, vc = q[:, :, None], k[:, :, :kv_len], v[:, :, :kv_len]
+            # one query against the cache cut to kv_len, k and v expanded
+            # to Hq heads
+            q1 = q[:, :, None]
+            kc = k[:, :, :kv_len].expand(b, hq, kv_len, d)
+            vc = v[:, :, :kv_len].expand(b, hq, kv_len, d)
             entry.update(
                 ms=cuda_ms(lambda: decode_attention_partial(
                     q, k, v, kv_len=kv_len), 50),
                 plain_ms=cuda_ms(lambda: decode_attention_ref(
                     q, k, v, kv_len=kv_len), 10),
-                # one query against the cache sliced to kv_len
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q1, kc, vc), 50),
                 normalized_ms=cuda_ms(lambda: decode_attention(
                     q, k, v, kv_len=kv_len), 50),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
-            row = entry
+            rows[timed] = entry
+            del q1, kc, vc
         emit(entry)
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 #: kernel-name parts the prefill and serve traces sum: the attention
@@ -1744,6 +1811,120 @@ def phase_ssm_kernel() -> dict:
     return row
 
 
+#: float32 operations per second of an H100 SXM (data sheet, outside the
+#: tensor cores; a multiply and an add count one each)
+FP32_OPS_PER_S = 67e12
+#: the RG-LRU scan's cases: each held to its plain version on the same
+#: CUDA tensors with torch.equal (both round each product and each sum
+#: alike); a in (0.9, 1) as the model's decay, b normal
+LRU_CASES = [
+    # (name, b, s, w, dtype, a fixed or None); the first is
+    # recurrentgemma-9b's prefill at batch 8 x 2,048 (its a and b are
+    # float32), the main path's shape, timed
+    ("prefill", 8, 2048, 4096, "float32", None),
+    ("prefill_bf16", 8, 2048, 4096, "bfloat16", None),
+    ("ragged", 3, 1000, 1000, "float32", None),
+    # a = 0.9999: h keeps nearly all of its past over 4,096 steps, so
+    # every step's rounding is carried to the end
+    ("carry_4096", 2, 4096, 1024, "float32", 0.9999),
+]
+
+
+def _lru_inputs(b, s, w, dtype, a_fixed, seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if a_fixed is None:
+        a = 0.9 + 0.1 * torch.rand((b, s, w), device="cuda", generator=gen)
+    else:
+        a = torch.full((b, s, w), a_fixed, device="cuda")
+    bb = torch.randn((b, s, w), device="cuda", generator=gen) * 0.1
+    return a.to(dtype), bb.to(dtype)
+
+
+def _lru_f64(a, b):
+    """The recurrence in float64: how far the float32 carry is from the
+    exact scan of the same inputs."""
+    import torch
+    ad, bd = a.double(), b.double()
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float64,
+                    device=a.device)
+    hs = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    for t in range(a.shape[1]):
+        h = ad[:, t] * h + bd[:, t]
+        hs[:, t] = h
+    return hs
+
+
+def _require_no_stack(kernel: str, count: int) -> list[dict]:
+    """ptxas's lines of ``kernel``'s ``count`` instantiations; each must
+    show no stack frame and no spill."""
+    from repro_torch.kernels import dispatch
+    entries = _ptxas_entries(dispatch.load_library()["log"], kernel)
+    require(len(entries) == count,
+            f"ptxas reported {len(entries)} {kernel} instantiations, "
+            f"expected {count}")
+    for e in entries:
+        require(e["stack"].startswith("0 bytes stack frame, 0 bytes spill "
+                                      "stores, 0 bytes spill loads"),
+                f"{e['entry']} uses a stack frame or spills: "
+                f"{e['stack']!r}")
+    return entries
+
+
+def phase_attention_ptxas() -> None:
+    """Every instantiation of the attention kernels (flash: float32 and
+    bf16 × D up to 32, 64, 128, 256; decode: four type pairs × 64- and
+    128-key tiles) keeps everything in registers."""
+    emit({"phase": "build", "ptxas_check": {
+        "flash_attention_kernel": _require_no_stack(
+            "flash_attention_kernel", 8),
+        "decode_attention_kernel": _require_no_stack(
+            "decode_attention_kernel", 8)}})
+
+
+def phase_lru_kernel() -> dict:
+    """``lru_scan`` against its plain version on the same CUDA tensors;
+    returns the timing row of the prefill shape."""
+    import torch
+    from repro_torch.kernels.lru_scan import lru_scan, lru_scan_ref
+    entries = _require_no_stack("lru_scan_kernel", 2)
+    row = None
+    for i, (name, b, s, w, dt_name, a_fixed) in enumerate(LRU_CASES):
+        dtype = getattr(torch, dt_name)
+        a, bb = _lru_inputs(b, s, w, dtype, a_fixed, i)
+        got = lru_scan(a, bb)
+        torch.cuda.synchronize()
+        want = lru_scan_ref(a, bb).to(dtype)
+        require(got.dtype == dtype and got.shape == (b, s, w),
+                f"lru_scan {name}: output {got.dtype} {tuple(got.shape)}")
+        diff = float((got.float() - want.float()).abs().max())
+        require(torch.equal(got, want),
+                f"lru_scan {name}: kernel differs from its plain version "
+                f"(max abs err {diff})")
+        entry = {"phase": "kernel", "name": "lru_scan", "case": name,
+                 "shape": [b, s, w], "dtype": dt_name, "a": a_fixed,
+                 "max_abs_err": 0.0, "equal": True,
+                 "max_abs_h": float(want.float().abs().max())}
+        if name == "carry_4096":
+            err64 = float((got.double() - _lru_f64(a, bb)).abs().max())
+            entry.update(kernel_max_abs_err_vs_f64=err64)
+        if name == "prefill":
+            n = b * s * w
+            nbytes = 3 * a.element_size() * n
+            b_ms, b_by = bound(nbytes, 2 * n, FP32_OPS_PER_S)
+            entry.update(
+                ms=cuda_ms(lambda: lru_scan(a, bb), 20),
+                plain_ms=cuda_ms(lambda: lru_scan_ref(a, bb), 1),
+                # no single PyTorch call computes a linear recurrence
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                ptxas=entries)
+            row = entry
+        emit(entry)
+        del a, bb, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
 #: falcon-mamba-7b: prefill batch x prompt; serve batch, prompt, generated
 SSM_PREFILL_SHAPE = (8, 2048)
 #: the prefill checks against the chunked plain path run at this batch:
@@ -1916,6 +2097,272 @@ def phase_ssm() -> int:
     return launches
 
 
+#: recurrentgemma-9b: prefill batch x prompt; serve batch, prompt, generated
+RG_PREFILL_SHAPE = (8, 2048)
+#: the prefill checks against the plain path (chunked scan, plain
+#: attention with its [B, 16, 2048, 2048] float32 scores) run at this batch
+RG_CHECK_BATCH = 2
+RG_SERVE_SHAPE = (8, 128, 64)
+#: float32 prefill logits, the kernel path against the plain path: the
+#: same recurrence scanned in another order (the chunked path's
+#: associative scan) and attention summed in another order, through 38
+#: layers
+RG_PREFILL_F32_TOL = 1e-3
+#: the first generated token's float32 logits against the prefill's, with
+#: a float32 KV cache: the same function, the prompt as 128 decode steps
+#: against one full forward, through 38 layers.  With the config's bf16
+#: cache the keys and values are rounded to bf16 first (2^-8 relative),
+#: and the dense family's tolerance applies (SERVE_VS_PREFILL_TOL)
+RG_SERVE_VS_PREFILL_TOL = 1e-3
+#: the ring check: the smoke config (window 8) served through the kernels
+#: for 24 steps, so its 8-slot ring wraps twice; each step's float32
+#: logits against the plain step fed the same tokens (both caches bf16,
+#: and equal: the one attention layer sees the same inputs in both
+#: loops), to the sums' order through 4 layers
+RING_STEPS, RING_PROMPT, RING_TOL = 24, 4, 1e-4
+RG_PROFILE_NAMES = ("lru_scan_kernel", "flash_attention_kernel",
+                    "decode_attention_kernel", "nvjet", "gemm",
+                    "elementwise")
+
+
+def _layer_kinds(cfg) -> dict:
+    """Layers of each block kind in ``cfg``'s stack."""
+    from repro_torch.models.transformer import stack_plan
+    kinds, n_groups, tail = stack_plan(cfg)
+    return {k: kinds.count(k) * n_groups + tail.count(k)
+            for k in set(kinds) | set(tail)}
+
+
+def phase_hybrid_prefill(cfg, params) -> tuple[int, int]:
+    """``make_prefill`` on recurrentgemma-9b at full size, batch 8 x
+    2,048; returns the RG-LRU scan and flash launches of the timed (bf16)
+    calls."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_prefill
+    (b, s), calls = RG_PREFILL_SHAPE, 3
+    layers = _layer_kinds(cfg)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    batch = {"tokens": tokens}
+    prefill = make_prefill(cfg)
+    prefill(params, batch)  # first call: the kernels' first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    walls = []
+    for _ in range(calls):
+        wall, logits = _timed(lambda: prefill(params, batch))
+        walls.append(wall)
+    lru = dispatch.launches["repro_lru_scan"]
+    flash = dispatch.launches["repro_flash_attention"]
+    require(lru == layers["rec"] * calls and flash == layers["attn"] * calls
+            and sum(dispatch.launches.values()) == lru + flash,
+            f"hybrid prefill: launches {dispatch.launches} over {calls} "
+            "calls")
+    peak = torch.cuda.max_memory_allocated()
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            "hybrid prefill: logits are not finite float32 [8, vocab]")
+    prof = _profile(lambda: prefill(params, batch), RG_PROFILE_NAMES)
+    del logits
+    # the checks against the plain path (the chunked scan and the plain
+    # attention), at batch 2
+    sub = {"tokens": tokens[:RG_CHECK_BATCH]}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    kern32 = make_prefill(cfg32)(params, sub)
+    plain32 = make_prefill(cfg32, attn_impl="dense")(params, sub)
+    err32 = float((kern32 - plain32).abs().max())
+    require(bool(torch.isfinite(kern32).all()) and err32 <= RG_PREFILL_F32_TOL,
+            f"hybrid prefill float32: kernel vs plain logits differ by "
+            f"{err32}")
+    kern = make_prefill(cfg)(params, sub)
+    plain = make_prefill(cfg, attn_impl="dense")(params, sub)
+    bf16_noise = {"max_abs": float((plain - plain32).abs().max()),
+                  "rms": _rms(plain - plain32)}
+    err = {"max_abs": float((kern - plain).abs().max()),
+           "rms": _rms(kern - plain)}
+    require(err["rms"] <= bf16_noise["rms"],
+            f"hybrid prefill bf16: kernel vs plain logits differ by {err}, "
+            f"more than bf16 compute moves them ({bf16_noise})")
+    emit({"phase": "hybrid_prefill", "arch": cfg.name,
+          "layers": cfg.n_layers, "layer_kinds": layers, "batch": b,
+          "prompt": s, "compute_dtype": "bfloat16",
+          "lru_scan_launches_per_call": lru // calls,
+          "flash_launches_per_call": flash // calls,
+          "wall_s": walls, "tok_per_s": [b * s / w for w in walls],
+          "peak_mem_bytes": peak, "check_batch": RG_CHECK_BATCH,
+          "logits_err_vs_plain": err, "bf16_vs_f32_logits": bf16_noise,
+          "f32_logits_max_abs_err_vs_plain": err32,
+          "f32_tol": RG_PREFILL_F32_TOL, "profiled_call": prof})
+    return lru, flash
+
+
+def _first_token_logits(cfg, params, prompt, cache_dtype):
+    """The logits after the serve step has taken the whole prompt (those
+    of the first generated token), with a KV cache of ``cache_dtype``."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+    b, plen = prompt.shape
+    step = make_serve_step(cfg, plen, b)
+    seen = {}
+    step.observe = lambda dbatch, logits: seen.update(logits=logits)
+    cache = transformer.init_cache(cfg, b, plen, dtype=cache_dtype)
+    toks = torch.from_numpy(prompt).cuda()
+    for t in range(plen):
+        step(params, cache, {"tokens": toks[:, t:t + 1], "index": t})
+    return seen["logits"]
+
+
+def phase_hybrid_serve(cfg, params) -> int:
+    """The ``launch.serve`` loop on recurrentgemma-9b at full size, batch
+    8, prompt 128, gen 64: the first token's float32 logits against the
+    prefill's, then the config's bf16, timed; returns the decode-attention
+    launches of the bf16 run."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    (b, plen, gen), seed = RG_SERVE_SHAPE, 0
+    kv_len = plen + gen
+    layers = _layer_kinds(cfg)
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab,
+                                                 size=(b, plen))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        pre = make_prefill(cfg32)(params, {"tokens": prompt})
+        first32 = _first_token_logits(cfg32, params, prompt, torch.float32)
+        first16 = _first_token_logits(cfg32, params, prompt, torch.bfloat16)
+    require(bool(torch.isfinite(first32).all()),
+            "hybrid serve float32: logits not finite")
+    err32 = float((first32 - pre).abs().max())
+    err16 = float((first16 - pre).abs().max())
+    require(err32 <= RG_SERVE_VS_PREFILL_TOL,
+            f"hybrid serve float32 (float32 cache): the first generated "
+            f"token's logits differ from the prefill's by {err32}")
+    require(err16 <= SERVE_VS_PREFILL_TOL,
+            f"hybrid serve float32 (bf16 cache): the first generated "
+            f"token's logits differ from the prefill's by {err16}")
+    del pre, first32, first16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = generate(cfg, params, prompt, gen)
+    launches = dispatch.launches["repro_decode_attention"]
+    require(launches == layers["attn"] * kv_len
+            and sum(dispatch.launches.values()) == launches,
+            f"hybrid serve: launches {dispatch.launches} over {kv_len} "
+            "steps")
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(toks.shape == (b, gen) and toks.min() >= 0
+            and toks.max() < cfg.vocab, f"hybrid serve: tokens {toks.shape}")
+    step = make_serve_step(cfg, kv_len, b)
+    cache = res["cache"]
+    last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
+            "index": kv_len - 1}
+    prof = _profile(lambda: step(params, cache, last), RG_PROFILE_NAMES)
+    emit({"phase": "hybrid_serve", "arch": cfg.name,
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": gen, "decode_launches_per_step": launches // kv_len,
+          "prompt_steps_s": res["prompt_s"], "gen_s": res["gen_s"],
+          "ms_per_decode_step": res["gen_s"] / gen * 1e3,
+          "gen_tok_per_s": b * gen / res["gen_s"], "peak_mem_bytes": peak,
+          "f32_first_token_logits_vs_prefill_max_abs": err32,
+          "f32_first_token_vs_prefill_tol": RG_SERVE_VS_PREFILL_TOL,
+          "f32_bf16_cache_first_token_vs_prefill_max_abs": err16,
+          "f32_bf16_cache_first_token_vs_prefill_tol": SERVE_VS_PREFILL_TOL,
+          "sample_row": toks[0][:16].tolist(), "profiled_step": prof})
+    return launches
+
+
+def phase_ring() -> int:
+    """The ring-buffer KV cache on the card: recurrentgemma-9b's smoke
+    config (window 8) served through the kernels for 24 steps, each
+    step's float32 logits against the plain step fed the same tokens;
+    returns the decode-attention launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                              compute_dtype="float32")
+    b = 2
+    params = transformer.init(cfg, seed=0, device="cuda").params()
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab,
+                                              size=(b, RING_PROMPT))
+    plain_cache = transformer.init_cache(cfg, b, RING_STEPS)
+    stats = {"max_err": 0.0, "steps": 0}
+
+    def observe(dbatch, logits):
+        want, _ = transformer.decode_step(params, plain_cache, dbatch, cfg,
+                                          impl="dense")
+        err = float((logits - want).abs().max())
+        require(bool(torch.isfinite(logits).all()) and err <= RING_TOL,
+                f"ring step {dbatch['index']}: logits differ from the plain "
+                f"step by {err}")
+        stats["max_err"] = max(stats["max_err"], err)
+        stats["steps"] += 1
+
+    dispatch.reset_launches()
+    with torch.no_grad():
+        res = generate(cfg, params, prompt, RING_STEPS - RING_PROMPT,
+                       observe=observe)
+    launches = dispatch.launches["repro_decode_attention"]
+    s_buf = res["cache"]["groups"]["b2_attn"]["k"].shape[3]
+    require(stats["steps"] == RING_STEPS and s_buf == cfg.window
+            and RING_STEPS > 2 * s_buf
+            and launches == _layer_kinds(cfg)["attn"] * RING_STEPS
+            and sum(dispatch.launches.values()) == launches,
+            f"ring: {stats['steps']} steps over {s_buf} slots, launches "
+            f"{dispatch.launches}")
+    emit({"phase": "ring", "arch": cfg.name + " (smoke)",
+          "window": cfg.window, "cache_slots": s_buf, "steps": RING_STEPS,
+          "ring_wraps": RING_STEPS // s_buf - 1,
+          "logits_max_abs_err_vs_plain": stats["max_err"], "tol": RING_TOL,
+          "decode_launches": launches})
+    return launches
+
+
+def phase_hybrid() -> dict:
+    """recurrentgemma-9b at full width and depth (38 layers, 10.44 B
+    parameters, random weights from seed 0): prefill, then serving; then
+    the ring check; returns the kernels' launches on these paths."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    cfg = get_config("recurrentgemma-9b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = get_api(cfg).init(cfg, seed=0, device="cuda")
+    # the reference's analytic count (ArchConfig.param_count) leaves out
+    # the RG-LRU's lambda [W] of every rec layer and the final norm
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.param_count() + _layer_kinds(cfg)["rec"]
+            * cfg.lru_width + cfg.d_model,
+            f"recurrentgemma-9b: {n_params} parameters")
+    emit({"phase": "hybrid_init", "params": n_params,
+          "param_count_analytic": cfg.param_count(),
+          "allocated_before_init_bytes": before,
+          "allocated_after_init_bytes": torch.cuda.memory_allocated(),
+          "init_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    params = model.params()
+    launches = {}
+    launches["repro_lru_scan"], launches["repro_flash_attention"] = \
+        phase_hybrid_prefill(cfg, params)
+    launches["repro_decode_attention"] = phase_hybrid_serve(cfg, params)
+    del model, params
+    torch.cuda.empty_cache()
+    phase_ring()
+    return launches
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -1947,7 +2394,13 @@ KERNELS = [
     ("ssm_scan", "repro_ssm_scan",
      "src/repro_torch/kernels/csrc/ssm_scan.cu",
      "src/repro/kernels/ssm_scan/kernel.py:55"),
+    ("lru_scan", "repro_lru_scan",
+     "src/repro_torch/kernels/csrc/lru_scan.cu",
+     "src/repro/kernels/lru_scan/kernel.py:42"),
 ]
+#: the kernel-line keys of a timing row
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
 
 
 def main(argv=None) -> int:
@@ -1977,9 +2430,18 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
-    attn_rows = {"flash_attention": phase_flash_kernel(),
-                 "decode_attention": phase_decode_kernel(),
-                 "ssm_scan": phase_ssm_kernel()}
+    phase_attention_ptxas()
+    flash_rows = phase_flash_kernel()
+    decode_rows = phase_decode_kernel()
+    # the kernels line reports each attention kernel at the dense family's
+    # shape and, under "d256", at recurrentgemma-9b's, each with its own
+    # path's launches
+    attn_rows = {"flash_attention": flash_rows["prefill"],
+                 "decode_attention": decode_rows["qwen"],
+                 "ssm_scan": phase_ssm_kernel(),
+                 "lru_scan": phase_lru_kernel()}
+    d256_rows = {"flash_attention": flash_rows["rg_prefill"],
+                 "decode_attention": decode_rows["rg"]}
     rows = phase_kernels()
     verify_rows = phase_verify_kernel()
     # the kernels line reports verify_shares at the audit shape, the
@@ -2014,6 +2476,10 @@ def main(argv=None) -> int:
     launches["repro_flash_attention"] = phase_prefill()
     launches["repro_decode_attention"] = phase_serve()
     launches["repro_ssm_scan"] = phase_ssm()
+    # the attention kernels' launches are each path's own: the dense
+    # family's at the top level, recurrentgemma-9b's under "d256"
+    hybrid_launches = phase_hybrid()
+    launches["repro_lru_scan"] = hybrid_launches["repro_lru_scan"]
     rows.update(attn_rows)
 
     kernels = []
@@ -2021,15 +2487,17 @@ def main(argv=None) -> int:
         row = rows[name]
         require(launches.get(key, 0) > 0,
                 f"{name} was not launched on the main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            # SDPA for the attention kernels; no single PyTorch call
-            # computes the others (a selective scan included)
-            "library_ms": row.get("library_ms")})
+        # SDPA for the attention kernels; no single PyTorch call computes
+        # the others (a selective or linear scan included)
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[key],
+                 **{k: row.get(k) for k in ROW_KEYS}}
+        if name in d256_rows:
+            entry["d256"] = {"shape": d256_rows[name]["shape"],
+                             "launches": hybrid_launches[key],
+                             **{k: d256_rows[name].get(k)
+                                for k in ROW_KEYS}}
+        kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     emit({"kernels": kernels})

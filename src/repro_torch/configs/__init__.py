@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
-Counterpart of ``repro/configs/__init__.py`` for the dense and SSM
-families the port runs (the configs are the reference's, as data).  The
-reference's other architectures belong to later slices and raise
-``NotImplementedError`` naming their ROADMAP item.  (The reference's
+Counterpart of ``repro/configs/__init__.py`` for the dense, SSM and
+hybrid families the port runs (the configs are the reference's, as
+data).  The reference's other architectures belong to later slices and
+raise ``NotImplementedError`` naming their ROADMAP item.  (The reference's
 ``configs/base.py`` holds the dry-run's shape cells and JAX input
 stand-ins; the trainer needs none of it.)
 """
@@ -19,6 +19,7 @@ _MODULES = {
     "llama3.2-1b": "llama32_1b",
     "tinyllama-1.1b": "tinyllama_11b",
     "qwen1.5-0.5b": "qwen15_05b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 #: architectures of the reference that later slices of the port carry
@@ -26,7 +27,6 @@ _MODULES = {
 LATER_ARCHS = {
     "qwen3-moe-235b-a22b": "the MoE family (ROADMAP queue 1, item 6)",
     "grok-1-314b": "the MoE family (ROADMAP queue 1, item 6)",
-    "recurrentgemma-9b": "the hybrid family (ROADMAP queue 1, item 4)",
     "whisper-large-v3": "the enc-dec family (ROADMAP queue 1, item 6)",
     "qwen2-vl-2b": "the embeddings frontend (ROADMAP queue 1, item 6)",
     "starcoder2-3b": ("the layernorm / gelu / sliding-window dense block "

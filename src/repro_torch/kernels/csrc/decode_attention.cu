@@ -15,8 +15,11 @@
 //
 // Design: one block of 128 threads per (KV head, batch row); the group's
 // query rows (Hq / Hkv, any count, qwen's 1 included) are the M
-// dimension.  The block loops over 128-key tiles of the cache up to
-// kv_len only: tiles past it are skipped, not masked, and the last
+// dimension.  The block loops over key tiles of 128 keys (64 where 128
+// would not fit the card's shared memory: recurrentgemma-9b's group 16 ×
+// D 256 takes 168,384 B at 64 and would take 303,808 B at 128; the
+// wrapper picks, kernels/decode_attention/kernel.py::block_keys) of the
+// cache up to kv_len only: tiles past it are skipped, not masked, and the last
 // tile's keys past kv_len take no part (the reference masks them to
 // -1e30, whose exp against the running max is exactly 0).  A tile's keys
 // and values are staged once in shared memory as float32 (keys padded by
@@ -34,13 +37,12 @@
 
 namespace {
 
-constexpr int kBK = 128;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
 using repro::kNegInf;
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, int kBK>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k,
     const TKV* __restrict__ v, float* __restrict__ acc_out,
@@ -133,27 +135,20 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-}  // namespace
-
-// q [B, Hq, D] with strides (q_sb, q_sh, 1); k and v [B, Hkv, S, D] with
-// strides (sb, sh, ss, 1); outputs float32 contiguous acc [B, Hq, D],
-// m and l [B, Hq].  1 <= kv_len <= S.  dtype codes: 0 float32,
-// 1 bfloat16, for q and for the cache separately.
-extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, void* acc, void* m,
-    void* l, int b, int hq, int hkv, int d, int kv_len, long long q_sb,
-    long long q_sh, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, float scale,
-    int q_dtype, int kv_dtype, void* stream) {
+template <int kBK>
+int launch_bk(const void* q, const void* k, const void* v, void* acc,
+              void* m, void* l, int b, int hq, int hkv, int d, int kv_len,
+              long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+              long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+              float scale, int q_dtype, int kv_dtype, cudaStream_t st) {
   const int group = hq / hkv;
   // kernels/decode_attention/kernel.py::smem_bytes
   const int bytes =
       4 * (2 * group * d + kBK * (d + 1) + kBK * d + group * kBK + 3 * group);
   const dim3 grid((unsigned)hkv, (unsigned)b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DECODE_LAUNCH(TQ, TKV)                                         \
   do {                                                                       \
-    auto kernel = decode_attention_kernel<TQ, TKV>;                          \
+    auto kernel = decode_attention_kernel<TQ, TKV, kBK>;                     \
     cudaError_t err = cudaFuncSetAttribute(                                  \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);         \
     if (err != cudaSuccess) return (int)err;                                 \
@@ -173,5 +168,30 @@ extern "C" int repro_decode_attention(
   if (q_dtype == repro::kBFloat16 && kv_dtype == repro::kBFloat16)
     REPRO_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
 #undef REPRO_DECODE_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q [B, Hq, D] with strides (q_sb, q_sh, 1); k and v [B, Hkv, S, D] with
+// strides (sb, sh, ss, 1); outputs float32 contiguous acc [B, Hq, D],
+// m and l [B, Hq].  1 <= kv_len <= S.  block_k (keys a staged tile) 64 or
+// 128.  dtype codes: 0 float32, 1 bfloat16, for q and for the cache
+// separately.
+extern "C" int repro_decode_attention(
+    const void* q, const void* k, const void* v, void* acc, void* m,
+    void* l, int b, int hq, int hkv, int d, int kv_len, int block_k,
+    long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    float scale, int q_dtype, int kv_dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_k == 128)
+    return launch_bk<128>(q, k, v, acc, m, l, b, hq, hkv, d, kv_len, q_sb,
+                          q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                          q_dtype, kv_dtype, st);
+  if (block_k == 64)
+    return launch_bk<64>(q, k, v, acc, m, l, b, hq, hkv, d, kv_len, q_sb,
+                         q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                         q_dtype, kv_dtype, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,18 +9,23 @@
 // prefill shape [8, 16, 2048, 64] does 4·D multiply-adds per visible
 // (query, key) pair, 68.7 GFLOP, against 134 MB of q, k, v and output
 // in bf16: 0.069 ms at the 989 TFLOP/s bf16 tensor-core peak, 0.040 ms
-// at 3.35 TB/s.  This kernel is the simple one: its products are float32
+// at 3.35 TB/s.  recurrentgemma-9b's prefill, q [8, 16, 2048, 256] against
+// one KV head (MQA) in window 2,048, does 275 GFLOP: 0.278 ms at the
+// same peak.  This kernel is the simple one: its products are float32
 // FMAs on the CUDA cores (67 TFLOP/s peak), so it sits well above that
 // bound; tensor cores (mma/wgmma) are the next step.
 //
-// Design: one block of 128 threads per (q-tile of 64 rows, query head,
-// batch row).  The q-tile is staged once in shared memory as float32; the
-// block loops over 64-key tiles of its KV head (h / group), each staged
-// as float32 (k with one float of padding per row, so the score reads
-// hit distinct banks).  Thread t owns rows 4·(t/8) .. +3 and keys
-// (t%8) + 8j of the score tile, and columns (t%8) + 8c of the output
-// rows: the eight threads of a row are neighbouring lanes, whose
-// shuffles give the row's max and sum.  The running max m, the
+// Design: one block per (q-tile of 64 rows, query head, batch row), of
+// 128 threads for D <= 128 and 256 threads for D = 256.  The q-tile is
+// staged once in shared memory as float32; the block loops over 64-key
+// tiles of its KV head (h / group), each staged as float32 (k with one
+// float of padding per row, so the score reads hit distinct banks).
+// Thread t owns R rows R·(t/8) .. +R-1 and keys (t%8) + 8j of the score
+// tile, and columns (t%8) + 8c of the output rows: the eight threads of
+// a row are neighbouring lanes, whose shuffles give the row's max and
+// sum.  R is 4 up to D = 128 and 2 at D = 256, where a thread's R × D/8
+// accumulators would otherwise take 128 registers and spill (213,760 B
+// of shared memory at D = 256).  The running max m, the
 // denominator l and the accumulator stay in registers in float32
 // (the online-softmax recurrence of the reference kernel's :84-95).
 // A k-tile that no row of the q-tile can see (above the causal
@@ -39,7 +44,14 @@ namespace {
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
-constexpr int kThreads = 128;
+
+// rows of the q-tile a thread owns, and the block's threads (eight a row
+// group), for head dims up to DB
+template <int DB>
+struct Tile {
+  static constexpr int kRows = DB > 128 ? 2 : 4;
+  static constexpr int kThreads = 8 * kBQ / kRows;
+};
 
 using repro::kNegInf;
 
@@ -53,7 +65,7 @@ constexpr int smem_floats() {
 }
 
 template <typename T, int DB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<DB>::kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int hq, int group, int sq, int skv, int d,
@@ -65,12 +77,14 @@ __global__ void __launch_bounds__(kThreads)
   float* s_v = s_k + kBK * (DB + 1);    // [kBK][DB]
   float* s_p = s_v + kBK * DB;          // [kBQ][kBK + 1]
   constexpr int kCols = DB / 8;
+  constexpr int kRows = Tile<DB>::kRows;
+  constexpr int kThreads = Tile<DB>::kThreads;
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // rows 4·rg .. 4·rg + 3
+  const int rg = tid >> 3;  // rows kRows·rg .. kRows·rg + kRows - 1
   const int cg = tid & 7;   // keys cg + 8j, output columns cg + 8c
   const int offs = causal ? skv - sq : 0;
 
@@ -95,9 +109,9 @@ __global__ void __launch_bounds__(kThreads)
   if (window > 0 && q_lo - window + 1 > 0)
     kb_begin = (q_lo - window + 1) / kBK;
 
-  float m_i[4], l_i[4], acc[4][kCols];
+  float m_i[kRows], l_i[kRows], acc[kRows][kCols];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     m_i[i] = kNegInf;
     l_i[i] = 0.f;
 #pragma unroll
@@ -119,26 +133,27 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    float s[4][8];
+    float s[kRows][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
     for (int c = 0; c < DB; ++c) {
-      float qv[4], kv[8];
+      float qv[kRows], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s_q[(4 * rg + i) * (DB + 1) + c];
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = s_q[(kRows * rg + i) * (DB + 1) + c];
 #pragma unroll
       for (int j = 0; j < 8; ++j) kv[j] = s_k[(cg + 8 * j) * (DB + 1) + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qa = q0 + 4 * rg + i + offs;
+    for (int i = 0; i < kRows; ++i) {
+      const int qa = q0 + kRows * rg + i + offs;
       unsigned visible = 0;
       float mx = kNegInf;
 #pragma unroll
@@ -159,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const float p = (visible >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        s_p[(4 * rg + i) * (kBK + 1) + cg + 8 * j] = p;
+        s_p[(kRows * rg + i) * (kBK + 1) + cg + 8 * j] = p;
       }
       rs = repro::group_sum<8>(rs);
       l_i[i] = l_i[i] * alpha + rs;
@@ -170,13 +185,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     for (int j = 0; j < kBK; ++j) {
-      float pv[4], vv[kCols];
+      float pv[kRows], vv[kCols];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = s_p[(4 * rg + i) * (kBK + 1) + j];
+      for (int i = 0; i < kRows; ++i)
+        pv[i] = s_p[(kRows * rg + i) * (kBK + 1) + j];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) vv[c] = s_v[j * DB + cg + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
         for (int c = 0; c < kCols; ++c)
           acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
@@ -184,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + kRows * rg + i;
     if (row >= sq) continue;
     // a row that saw no key has l = 0 and acc = 0: it outputs 0
     const float l = l_i[i] == 0.f ? 1.f : l_i[i];
@@ -210,7 +226,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)hq,
                   (unsigned)b);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, Tile<DB>::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), hq, hq / hkv, sq, skv,
       d, qs, ks, vs, scale, causal, window);
@@ -230,6 +246,9 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b,
                          scale, causal, window, stream);
   if (d <= 128)
     return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, d, qs, ks, vs,
+                          scale, causal, window, stream);
+  if (d <= 256)
+    return launch<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, d, qs, ks, vs,
                           scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }

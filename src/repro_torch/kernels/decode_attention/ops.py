@@ -14,7 +14,8 @@ import math
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import records_grad
-from .kernel import MAX_SMEM_BYTES, decode_attention_cuda, smem_bytes
+from .kernel import (MAX_SMEM_BYTES, block_keys, decode_attention_cuda,
+                     smem_bytes)
 from .ref import combine_partials, decode_attention_ref
 
 #: gridDim.x and gridDim.y carry the KV head and the batch row
@@ -45,10 +46,12 @@ def check_inputs(q, k, v, kv_len) -> None:
     if b > MAX_GRID_XY or k.shape[1] > MAX_GRID_XY:
         raise ValueError(f"decode_attention: at most {MAX_GRID_XY} KV heads "
                          f"and batch rows per launch")
-    if smem_bytes(hq // k.shape[1], d) > MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: group {hq // k.shape[1]} × head "
-                         f"dim {d} needs {smem_bytes(hq // k.shape[1], d)} "
-                         f"bytes of shared memory, above {MAX_SMEM_BYTES}")
+    group = hq // k.shape[1]
+    need = smem_bytes(group, d, block_keys(group, d))
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"decode_attention: group {group} × head dim {d} "
+                         f"needs {need} bytes of shared memory, above "
+                         f"{MAX_SMEM_BYTES}")
     if not isinstance(kv_len, int) or not 1 <= kv_len <= k.shape[2]:
         raise ValueError(f"decode_attention: kv_len must be a host int in "
                          f"[1, {k.shape[2]}] on the card, got {kv_len!r}")

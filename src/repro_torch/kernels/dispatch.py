@@ -74,15 +74,17 @@ _SIGNATURES = {
     "repro_flash_attention": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
                               *(ctypes.c_longlong,) * 9, ctypes.c_float,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-    # q, k, v, acc, m, l, b, hq, hkv, d, kv_len, q strides (b, h),
+    # q, k, v, acc, m, l, b, hq, hkv, d, kv_len, block_k, q strides (b, h),
     # k/v strides (b, h, s), scale, q dtype, kv dtype, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 5,
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 6,
                                *(ctypes.c_longlong,) * 8, ctypes.c_float,
                                ctypes.c_int, ctypes.c_int, _P),
     # x, dt, bc, cc, a, y, b, s, di, st, bc/cc strides (b, s), dtype,
     # stream
     "repro_ssm_scan": (*(_P,) * 6, *(ctypes.c_int,) * 4,
                        *(ctypes.c_longlong,) * 4, ctypes.c_int, _P),
+    # a, b, h, b, s, w, dtype, stream
+    "repro_lru_scan": (_P, _P, _P, *(ctypes.c_int,) * 4, _P),
 }
 
 #: element-type codes of the float kernels' C interface

@@ -19,8 +19,9 @@ from repro_torch.kernels import dispatch
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
 
-#: the kernel's widest head (``csrc/flash_attention.cu``)
-MAX_HEAD_DIM = 128
+#: the kernel's widest head (``csrc/flash_attention.cu``: instantiated
+#: for D up to 32, 64, 128 and 256)
+MAX_HEAD_DIM = 256
 #: gridDim.y and gridDim.z carry the query head and the batch row
 MAX_GRID_YZ = 65535
 

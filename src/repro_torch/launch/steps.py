@@ -16,7 +16,8 @@ step's parts for a profiler: ``fwd_bwd``, ``secure_aggregate`` and
 ``make_prefill`` and ``make_serve_step`` are the counterparts of the
 reference's (:432-470) without ``jit`` or a mesh: plain callables on one
 device, run without autograd.  ``attn_impl`` reaches every block: the
-attention rule and the SSM block's scan rule (``models/ssm.py``).
+attention rule and the scan rules of the SSM and rec blocks
+(``models/ssm.py``, ``models/hybrid.py``).
 
 Later slices: MPC-FSDP (``fsdp=True``, or ``fsdp=None`` resolving to it
 for a model whose fp32 state does not fit 60 % of 16 GB), top-k
@@ -218,8 +219,9 @@ def make_prefill(cfg: ArchConfig, attn_impl: str = "auto", device="cuda"):
     position).  ``params``: the model's ``params()`` tree;
     ``batch["tokens"]`` ``[B, S]`` (numpy or a tensor) is moved to the
     step's device.  ``attn_impl="auto"`` runs the flash kernel (dense
-    family) or the selective-scan kernel (SSM family) on the card;
-    ``"dense"`` their plain paths."""
+    family), the selective-scan kernel (SSM family), or the RG-LRU scan
+    and flash kernels (hybrid family) on the card; ``"dense"`` their
+    plain paths."""
     api = get_api(cfg)
     device = dispatch.resolve_device(device)
 
@@ -256,12 +258,19 @@ class ServeStep:
         self.device = dispatch.resolve_device(device)
         self.observe = None
 
+    @property
+    def cache_length(self) -> int:
+        """The KV buffers' length: ``kv_len``, or ``min(kv_len, window)``
+        under a sliding window (the ring buffer of ``init_cache``)."""
+        window = self.cfg.window
+        return min(self.kv_len, window) if window else self.kv_len
+
     def __call__(self, params, cache, dbatch):
         batch, length = cache_batch_and_length(cache)
-        if batch != self.batch or length not in (None, self.kv_len):
+        if batch != self.batch or length not in (None, self.cache_length):
             raise ValueError(f"cache of batch {batch} × length {length}; "
                              f"the step serves {self.batch} × "
-                             f"{self.kv_len}")
+                             f"{self.cache_length}")
         with torch.no_grad():
             logits, cache = self.api.decode_step(params, cache, dbatch,
                                                  self.cfg)

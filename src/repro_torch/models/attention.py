@@ -38,20 +38,26 @@ FLASH_UNDER_AUTOGRAD = (
     "training runs 'dense' or 'xla_chunked'")
 
 
-def _mask(q_idx, k_idx, causal: bool):
-    if causal:
-        return k_idx[None, :] > q_idx[:, None]
-    return torch.zeros((q_idx.shape[0], k_idx.shape[0]), dtype=torch.bool,
+def _mask(q_idx, k_idx, causal: bool, window: int):
+    """True where a key is masked: above the causal diagonal, or at or
+    below ``q - window`` (the reference's ``xla_chunked_attention``)."""
+    mask = torch.zeros((q_idx.shape[0], k_idx.shape[0]), dtype=torch.bool,
                        device=q_idx.device)
+    if causal:
+        mask = mask | (k_idx[None, :] > q_idx[:, None])
+    if window and window > 0:
+        mask = mask | (k_idx[None, :] <= q_idx[:, None] - window)
+    return mask
 
 
-def xla_chunked_attention(q, k, v, *, causal: bool = True,
+def xla_chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           sm_scale: float | None = None,
                           block_k: int = 512):
     """Streaming-softmax attention over KV blocks of ``block_k``.
 
     q: ``[B,H,Sq,D]``; k/v: ``[B,Hkv,Skv,D]``.  Scores take
-    ``O(Sq·block_k)`` per head instead of ``O(Sq·Skv)``.
+    ``O(Sq·block_k)`` per head instead of ``O(Sq·Skv)``.  ``window > 0``
+    masks the keys at or below ``q - window``, as the reference's.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -75,7 +81,7 @@ def xla_chunked_attention(q, k, v, *, causal: bool = True,
             vc = vc.repeat_interleave(group, dim=1)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kc)
         k_idx = lo + torch.arange(block_k, device=q.device)
-        s = torch.where(_mask(q_idx, k_idx, causal)[None, None],
+        s = torch.where(_mask(q_idx, k_idx, causal, window)[None, None],
                         torch.full((), NEG_INF, device=q.device), s)
         m_new = torch.maximum(m_prev, s.max(dim=-1).values)
         alpha = torch.exp(m_prev - m_new)
@@ -106,7 +112,7 @@ def attention(q, k, v, cfg: ArchConfig, *, causal: bool = True,
         return flash_attention(q, k, v, causal=causal, window=cfg.window)
     if impl == "xla_chunked":
         return xla_chunked_attention(q, k, v, causal=causal,
-                                     block_k=block_k)
+                                     window=cfg.window, block_k=block_k)
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r}")
     return attention_ref(q, k, v, causal=causal,

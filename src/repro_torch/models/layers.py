@@ -70,8 +70,14 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 
 # ---------------------------------------------------------------------------
-# Dense SiLU-gated MLP
+# Dense gated MLP (SiLU, or GeGLU)
 # ---------------------------------------------------------------------------
+
+def gelu(x):
+    """``jax.nn.gelu``: the tanh approximation by default (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype, device=None,
              d_ff: int | None = None):
@@ -90,7 +96,8 @@ def mlp_apply(params, x, cfg: ArchConfig):
     gate = x @ params["w_gate"].to(cd)
     up = x @ params["w_up"].to(cd)
     gate = shard(gate, "batch", "seq", "ff")
-    return (F.silu(gate) * up) @ params["w_down"].to(cd)
+    act = F.silu(gate) if cfg.act == "silu" else gelu(gate)
+    return (act * up) @ params["w_down"].to(cd)
 
 
 # ---------------------------------------------------------------------------

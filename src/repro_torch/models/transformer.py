@@ -1,41 +1,50 @@
-"""Decoder-only LM of the dense and SSM families, as an ``nn.Module``.
+"""Decoder-only LM of the dense, SSM and hybrid families, as an
+``nn.Module``.
 
 Counterpart of ``repro/models/transformer.py`` for the dense family
-(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b) and the SSM family
-(falcon-mamba-7b, ``models/ssm.py``): one parameter schema and the
-training and serving entry points.
+(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b), the SSM family
+(falcon-mamba-7b, ``models/ssm.py``) and the hybrid family
+(recurrentgemma-9b: (rec, rec, local-attn) triads and trailing rec
+layers, ``models/hybrid.py``): one parameter schema and the training
+and serving entry points.
 
 * ``init(cfg, seed, device)`` — a ``Transformer`` whose parameters are
   registered under the reference's tree keys, with the layers
   **stacked**: every leaf under ``layers`` has a leading ``L`` dim, as
-  the reference's ``lax.scan`` stack has.  So the gradient tree has the
-  reference's 14 leaves for qwen1.5-0.5b (13 for falcon-mamba-7b),
-  with the same key paths and element order, and the secure
-  aggregation's per-leaf seeds (``fl.spmd.leaf_seed_tag``) and Philox
-  streams are the reference's.
+  the reference's ``lax.scan`` stack has.  A hybrid's trailing layers
+  sit unstacked in the **list** ``tail``, one block a layer, as the
+  reference's (``['tail']/[0]/['rec']/['w_x']``).  So the gradient tree
+  has the reference's 14 leaves for qwen1.5-0.5b (13 for
+  falcon-mamba-7b, 72 for recurrentgemma-9b), with the same key paths
+  and element order, and the secure aggregation's per-leaf seeds
+  (``fl.spmd.leaf_seed_tag``) and Philox streams are the reference's.
 * ``loss_fn(params, batch, cfg)`` — next-token NLL over a nested dict of
   tensors (``model.params()``, or detached copies for local steps).
 * ``from_reference`` / ``to_reference`` — the reference's parameter
   tree, as numpy arrays keyed by its leaf paths, into and out of the
   port's model.
 * ``prefill(params, batch, cfg)`` — the last position's logits of a
-  full forward (the flash kernel, or the selective-scan kernel, on the
-  card), as the reference's;
+  full forward (on the card: the flash kernel, the selective-scan
+  kernel, or the RG-LRU scan kernel and the flash kernel with the
+  local-attention window), as the reference's;
 * ``init_cache`` / ``decode_step`` — the decode state in the reference's
-  layout (a KV cache per attention layer, conv and SSM states per SSM
-  layer) and one greedy-serving step against it.  The step updates the
-  state in place (the reference returns a new one) and runs its
-  attention through the decode kernel (``kernels/decode_attention``),
-  where the reference computes it inline (ROADMAP queue 3, finding 4);
-  the SSM step has no kernel, in either package.
+  layout (a KV cache per attention layer, a ring buffer of
+  ``min(kv_len, window)`` slots under a window; conv and SSM states per
+  SSM layer; conv and RG-LRU states per rec layer; the tail's in the
+  list ``cache["tail"]``) and one greedy-serving step against it.  The
+  step updates the state in place (the reference returns a new one) and
+  runs its attention through the decode kernel
+  (``kernels/decode_attention``), where the reference computes it
+  inline (ROADMAP queue 3, finding 4); the SSM and rec steps have no
+  kernel, in either package.
 
 The loop over layers takes each stacked leaf apart once with ``unbind``,
 so backward writes each leaf's gradient as one ``[L, ...]`` stack.
 ``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` while
 autograd records: the backward recomputes the layer's forward with the
-same operations, so no number changes.  The MoE, hybrid and enc-dec
-families and sliding windows are later slices and raise
-``NotImplementedError``.
+same operations, so no number changes.  The MoE and enc-dec families,
+and a dense block with a sliding window, layernorm or a plain gelu MLP,
+are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (combine_partials,
                                                   decode_attention,
                                                   decode_attention_ref)
-from . import ssm
+from . import hybrid, ssm
 from .attention import attention
 from .common import ArchConfig, dtype_of, shard
 from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
@@ -62,25 +71,29 @@ from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
 #: families of the reference that later slices of the port carry over
 LATER_FAMILIES = {
     "moe": "the MoE family (ROADMAP queue 1, item 6)",
-    "hybrid": "the hybrid family with lru_scan (ROADMAP queue 1, item 4)",
     "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense or an SSM
-    LM."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, an SSM or
+    a hybrid LM."""
     if cfg.enc_dec:
         key = "enc_dec"
     elif cfg.n_experts:
         key = "moe"
-    elif cfg.family == "hybrid":
-        key = "hybrid"
     elif cfg.frontend != "tokens":
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
             "the embeddings frontend belongs to ROADMAP queue 1, item 6 of "
             "the PyTorch port, whose train and serve steps take tokens")
+    elif cfg.family == "hybrid":
+        if (cfg.norm, cfg.act) == ("rmsnorm", "geglu"):
+            return  # recurrentgemma-9b
+        raise NotImplementedError(
+            f"norm={cfg.norm!r}, act={cfg.act!r} ({cfg.name}) is not ported "
+            "yet: it belongs to ROADMAP queue 1, item 6 of the PyTorch "
+            "port, whose hybrid block is rmsnorm and GeGLU")
     elif (cfg.norm, cfg.act, cfg.window) != ("rmsnorm", "silu", 0):
         raise NotImplementedError(
             f"norm={cfg.norm!r}, act={cfg.act!r}, window={cfg.window} "
@@ -151,10 +164,10 @@ def attn_apply(p, x, cfg: ArchConfig, positions, impl: str = "auto",
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "ssm"):
+    if kind not in ("attn", "ssm", "rec"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet ('attn' and 'ssm' "
-            "only)")
+            f"block kind {kind!r} is not ported yet ('attn', 'ssm' and "
+            "'rec' only)")
 
 
 def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
@@ -162,6 +175,11 @@ def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
     if kind == "ssm":
         return {"ln": norm_init(cfg, dtype, device),
                 "ssm": ssm.ssm_block_init(gen, cfg, dtype, device)}
+    if kind == "rec":
+        return {"ln": norm_init(cfg, dtype, device),
+                "rec": hybrid.rec_block_init(gen, cfg, dtype, device),
+                "ln2": norm_init(cfg, dtype, device),
+                "mlp": mlp_init(gen, cfg, dtype, device)}
     return {"ln1": norm_init(cfg, dtype, device),
             "attn": attn_init(gen, cfg, dtype, device),
             "ln2": norm_init(cfg, dtype, device),
@@ -174,6 +192,10 @@ def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
     if kind == "ssm":
         return x + ssm.ssm_block_apply(p["ssm"], apply_norm(cfg, p["ln"], x),
                                        cfg, impl=impl)
+    if kind == "rec":
+        h = x + hybrid.rec_block_apply(p["rec"], apply_norm(cfg, p["ln"], x),
+                                       cfg, impl=impl)
+        return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
     h = x + attn_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cfg,
                        positions, impl=impl)
     return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
@@ -185,11 +207,15 @@ def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
 
 def stack_plan(cfg: ArchConfig) -> tuple[tuple[str, ...], int,
                                          tuple[str, ...]]:
-    """Returns (group_kinds, n_groups, tail_kinds), as the reference; the
-    families ``check_family`` lets through stack one block per layer,
-    ``ssm`` or ``attn``."""
+    """Returns (group_kinds, n_groups, tail_kinds), as the reference: one
+    ``ssm`` or ``attn`` block per layer, or the hybrid's groups of its
+    block pattern (``rec, rec, attn``) and its ``rec`` tail."""
     if cfg.family == "ssm":
         return ("ssm",), cfg.n_layers, ()
+    if cfg.family == "hybrid":
+        pattern = cfg.block_pattern or ("rec", "rec", "attn")
+        n_groups = (cfg.n_layers - cfg.n_tail_layers) // len(pattern)
+        return tuple(pattern), n_groups, ("rec",) * cfg.n_tail_layers
     return ("attn",), cfg.n_layers, ()
 
 
@@ -197,20 +223,24 @@ def stack_plan(cfg: ArchConfig) -> tuple[tuple[str, ...], int,
 # The model
 # ---------------------------------------------------------------------------
 
-def _register(module: nn.Module, tree: dict) -> None:
-    for key in sorted(tree):
-        value = tree[key]
-        if isinstance(value, dict):
+def _register(module: nn.Module, tree) -> None:
+    """Registers a tree of dicts and lists (a list item under its index,
+    as a name: ``tail.0.rec.w_x``)."""
+    items = (enumerate(tree) if isinstance(tree, list)
+             else ((key, tree[key]) for key in sorted(tree)))
+    for key, value in items:
+        if isinstance(value, (dict, list)):
             child = nn.Module()
             _register(child, value)
-            module.add_module(key, child)
+            module.add_module(str(key), child)
         else:
-            module.register_parameter(key, nn.Parameter(value))
+            module.register_parameter(str(key), nn.Parameter(value))
 
 
 class Transformer(nn.Module):
     """An LM whose parameters sit under the reference's tree keys
-    (``embed.table``, ``layers.b0_attn.attn.wq`` [L, d, h·dh], ...)."""
+    (``embed.table``, ``layers.b0_attn.attn.wq`` [L, d, h·dh],
+    ``tail.0.rec.w_x``, ...)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
@@ -219,9 +249,11 @@ class Transformer(nn.Module):
         _register(self, tree)
 
     def params(self) -> dict:
-        """The parameters as the reference's nested tree."""
-        names = [tuple(name.split(".")) for name, _ in
-                 self.named_parameters()]
+        """The parameters as the reference's nested tree (the tail a list,
+        keyed by int)."""
+        names = [tuple(int(k) if k.isdigit() else k
+                       for k in name.split("."))
+                 for name, _ in self.named_parameters()]
         return unflatten(names, [p for _, p in self.named_parameters()])
 
 
@@ -243,7 +275,7 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     check_family(cfg)
     device = _model_device(device)
     dtype = dtype_of(cfg, "param_dtype")
-    group_kinds, n_groups, _ = stack_plan(cfg)
+    group_kinds, n_groups, tail_kinds = stack_plan(cfg)
     # a model on the meta device (shapes only) draws nothing
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(int(seed)))
@@ -266,6 +298,9 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
         "layers": unflatten(paths, stacked),
         "final_norm": norm_init(cfg, dtype, device),
     }
+    if tail_kinds:
+        tree["tail"] = [block_init(gen, cfg, dtype, kind, device)
+                        for kind in tail_kinds]
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": torch.randn(
             (cfg.d_model, cfg.vocab), generator=gen, dtype=dtype,
@@ -311,7 +346,7 @@ def _schema_paths(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
-    group_kinds, n_groups, _ = stack_plan(cfg)
+    group_kinds, n_groups, tail_kinds = stack_plan(cfg)
     flat = flatten_with_path(params["layers"])
     paths = [p for p, _ in flat]
     per_layer = list(zip(*(leaf.unbind(0) for _, leaf in flat)))
@@ -332,6 +367,8 @@ def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
                            use_reentrant=False)
         else:
             x = group_body(x, *layer_leaves)
+    for tp, kind in zip(params.get("tail", []), tail_kinds):
+        x = block_apply(tp, x, cfg, positions, kind, impl=impl)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -383,36 +420,46 @@ CACHE_DTYPE = torch.bfloat16
 def init_cache(cfg: ArchConfig, batch: int, kv_len: int,
                dtype=CACHE_DTYPE, device="cuda"):
     """Zeroed decode state: ``{"groups": {"b0_attn": {"k", "v"}}}``, each
-    ``[L, B, Hkv, kv_len, Dh]`` of ``dtype``, on ``device`` (the card
-    unless ``device="cpu"``).  An SSM layer group holds
-    ``{"conv": [L, B, k-1, di], "ssm": [L, B, di, st]}`` instead, both
-    float32 whatever ``dtype`` (as the reference's), whose size does not
-    grow with ``kv_len``."""
+    ``[L, B, Hkv, S_buf, Dh]`` of ``dtype``, on ``device`` (the card
+    unless ``device="cpu"``), where ``S_buf`` is ``kv_len``, or
+    ``min(kv_len, cfg.window)`` under a sliding window (a ring buffer).
+    An SSM layer group holds ``{"conv": [L, B, k-1, di], "ssm": [L, B,
+    di, st]}`` instead, and a rec layer group ``{"conv": [L, B, 3, W],
+    "h": [L, B, W]}``, all float32 whatever ``dtype`` (as the
+    reference's), whose size does not grow with ``kv_len``.  A hybrid's
+    tail layers hold theirs in the list ``cache["tail"]``, each with a
+    leading dim of 1, as the reference's."""
     check_family(cfg)
     device = dispatch.resolve_device(device)
-    group_kinds, n_groups, _ = stack_plan(cfg)
+    group_kinds, n_groups, tail_kinds = stack_plan(cfg)
 
-    def one(kind):
-        if kind == "ssm":
-            return {name: torch.zeros((n_groups,) + tuple(t.shape),
-                                      dtype=t.dtype, device=device)
-                    for name, t in ssm.ssm_init_state(
-                        cfg, batch, device="meta").items()}
-        shape = (n_groups, batch, cfg.n_kv_heads, kv_len, cfg.d_head)
+    def one(kind, n):
+        if kind in ("ssm", "rec"):
+            state = (ssm.ssm_init_state if kind == "ssm"
+                     else hybrid.rec_init_state)(cfg, batch, device="meta")
+            return {name: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                      device=device)
+                    for name, t in state.items()}
+        s_buf = min(kv_len, cfg.window) if cfg.window else kv_len
+        shape = (n, batch, cfg.n_kv_heads, s_buf, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    return {"groups": {f"b{i}_{kind}": one(kind)
-                       for i, kind in enumerate(group_kinds)}}
+    cache = {"groups": {f"b{i}_{kind}": one(kind, n_groups)
+                        for i, kind in enumerate(group_kinds)}}
+    if tail_kinds:
+        cache["tail"] = [one(kind, 1) for kind in tail_kinds]
+    return cache
 
 
 def cache_batch_and_length(cache) -> tuple[int, int | None]:
     """The batch of a cache from ``init_cache``, and the length of its KV
-    buffers (``None`` for a model whose state does not grow: SSM)."""
-    group = next(iter(cache["groups"].values()))
-    if "k" in group:
-        return group["k"].shape[1], group["k"].shape[3]
-    return group["ssm"].shape[1], None
+    buffers (``None`` for a model without attention, whose state does
+    not grow: SSM)."""
+    groups = list(cache["groups"].values()) + list(cache.get("tail", []))
+    batch = next(iter(groups[0].values())).shape[1]
+    kv = next((g["k"] for g in groups if "k" in g), None)
+    return batch, None if kv is None else kv.shape[3]
 
 
 def _decode_attn_block(p, x, cache_kv, cfg: ArchConfig, index: int,
@@ -453,6 +500,12 @@ def _decode_block(p, x, cache_kv, cfg: ArchConfig, index: int, positions,
         y, _ = ssm.ssm_block_step(p["ssm"], apply_norm(cfg, p["ln"], x),
                                   cache_kv, cfg)
         return x + y
+    if kind == "rec":
+        y, _ = hybrid.rec_block_step(p["rec"], apply_norm(cfg, p["ln"], x),
+                                     cache_kv, cfg)
+        h = x + y
+        inner = apply_norm(cfg, p["ln2"], h[:, None, :])
+        return h + mlp_apply(p["mlp"], inner, cfg)[:, 0]
     h = x + _decode_attn_block(p["attn"], apply_norm(cfg, p["ln1"], x),
                                cache_kv, cfg, index, positions, impl)
     inner = apply_norm(cfg, p["ln2"], h[:, None, :])
@@ -466,8 +519,8 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
     Returns (logits ``[B, V]`` float32, the cache, updated in place).
     ``impl``: ``"auto"`` runs the decode-attention wrapper (the CUDA
     kernel on the card, its plain version on the CPU); ``"dense"`` its
-    plain version on any device.  An SSM layer's step is plain PyTorch
-    whatever ``impl`` (the reference has no kernel for it).
+    plain version on any device.  An SSM or rec layer's step is plain
+    PyTorch whatever ``impl`` (the reference has no kernel for it).
     """
     check_family(cfg)
     if impl not in ("auto", "dense"):
@@ -477,7 +530,7 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
     x = embed(params["embed"], batch["tokens"][:, 0], cd)
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
                            device=x.device)
-    group_kinds, n_groups, _ = stack_plan(cfg)
+    group_kinds, n_groups, tail_kinds = stack_plan(cfg)
     flat = flatten_with_path(params["layers"])
     paths = [p for p, _ in flat]
     per_layer = list(zip(*(leaf.unbind(0) for _, leaf in flat)))
@@ -492,6 +545,10 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
                   for key, buf in cache["groups"][name].items()}
             x = _decode_block(gp[name], x, kv, cfg, index, positions, kind,
                               impl)
+    for tp, tc, kind in zip(params.get("tail", []), cache.get("tail", []),
+                            tail_kinds):
+        state = {key: buf[0] for key, buf in tc.items()}
+        x = _decode_block(tp, x, state, cfg, index, positions, kind, impl)
     x = apply_norm(cfg, params["final_norm"], x[:, None, :])[:, 0]
     w = lm_head_weight(params, cfg)
     return (x @ w.to(x.dtype)).float(), cache

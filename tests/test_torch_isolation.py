@@ -75,7 +75,16 @@ def _entry_points():
     from repro_torch.models import simple_nn, transformer
     smoke = get_config("qwen1.5-0.5b", smoke=True)
     ssm_smoke = get_config("falcon-mamba-7b", smoke=True)
+    hybrid_smoke = get_config("recurrentgemma-9b", smoke=True)
     return {
+        "transformer_hybrid": lambda: transformer.init(hybrid_smoke),
+        "init_cache_hybrid": lambda: transformer.init_cache(hybrid_smoke, 2,
+                                                            8),
+        "make_prefill_hybrid": lambda: steps.make_prefill(hybrid_smoke),
+        "make_serve_step_hybrid": lambda: steps.make_serve_step(
+            hybrid_smoke, 8, 2),
+        "serve_hybrid": lambda: serve.run(serve.parse_args(
+            ["--arch", "recurrentgemma-9b", "--smoke"])),
         "make_prefill": lambda: steps.make_prefill(smoke),
         "make_prefill_ssm": lambda: steps.make_prefill(ssm_smoke),
         "init_cache_ssm": lambda: transformer.init_cache(ssm_smoke, 2, 8),
@@ -110,7 +119,9 @@ def _entry_points():
                                   "train", "elect_committee_spmd",
                                   "make_prefill", "make_serve_step",
                                   "init_cache", "serve", "make_prefill_ssm",
-                                  "init_cache_ssm"])
+                                  "init_cache_ssm", "transformer_hybrid",
+                                  "init_cache_hybrid", "make_prefill_hybrid",
+                                  "make_serve_step_hybrid", "serve_hybrid"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -164,8 +175,6 @@ def _train_knob(name):
         "pallas": lambda: attention.attention(q, q, q, smoke, impl="pallas"),
         "moe": lambda: transformer.init(dataclasses.replace(
             smoke, n_experts=4, top_k=2, d_ff_expert=32)),
-        "hybrid": lambda: transformer.init(dataclasses.replace(
-            smoke, family="hybrid")),
         "enc_dec": lambda: get_config("whisper-large-v3"),
         "starcoder2": lambda: get_config("starcoder2-3b"),
         "layernorm": lambda: transformer.init(dataclasses.replace(
@@ -184,9 +193,8 @@ def _train_knob(name):
     dict(vss=True, cohort=3), dict(cohort=3),
     dict(reelect_each_round=True, cohort=3), dict(compress_topk=0.1),
     dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
-    "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "hybrid",
-    "enc_dec", "prefill", "ckpt_dir", "starcoder2", "layernorm", "window",
-    "serve_tp",
+    "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "enc_dec",
+    "prefill", "ckpt_dir", "starcoder2", "layernorm", "window", "serve_tp",
 ])
 def test_later_slice_knobs_raise_not_implemented(knob):
     if isinstance(knob, str):
@@ -216,6 +224,33 @@ def test_falcon_mamba_is_ported_and_its_training_needs_mpc_fsdp():
     assert steps.needs_fsdp(cfg)
     with pytest.raises(NotImplementedError, match="MPC-FSDP.*ROADMAP queue"):
         steps.make_train_step(cfg, device="cpu")
+
+
+def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
+    """The hybrid family serves (recurrentgemma-9b loads at full size);
+    its 10.4 B float32 parameters and their Adam moments take the
+    MPC-FSDP layout, a later slice.  A dense block with a window still
+    raises (starcoder2-3b's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = get_config("recurrentgemma-9b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.lru_width, cfg.window,
+            cfg.vocab, cfg.act, cfg.tie_embeddings) == (
+        "hybrid", 38, 4096, 16, 1, 256, 12288, 4096, 2048, 256000, "geglu",
+        False)
+    assert cfg.param_count() == 10_444_873_728
+    transformer.check_family(cfg)
+    assert transformer.stack_plan(cfg) == (("rec", "rec", "attn"), 12,
+                                           ("rec", "rec"))
+    assert steps.needs_fsdp(cfg)
+    with pytest.raises(NotImplementedError, match="MPC-FSDP.*ROADMAP queue"):
+        steps.make_train_step(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
+        transformer.check_family(dataclasses.replace(cfg, family="dense"))
 
 
 def test_later_slice_transport_options_raise_not_implemented():

@@ -28,6 +28,7 @@ from repro_torch.core.fixed_point import FixedPointConfig as TFP
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.kernels.reconstruct import reconstruct
 from repro_torch.kernels.shamir import (shamir_reconstruct, shamir_share,
                                         shamir_share_batch)
@@ -154,12 +155,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     decode_attention(q[:, :, 0], q, q, kv_len=1)
     xs = x[:1, :32].reshape(1, 2, 16)
     ssm_scan(xs, xs.abs(), xs[..., :4], xs[..., 4:8], -torch.ones(16, 4))
+    lru_scan(xs.abs(), xs)
     assert set(dispatch.launches) == {
         "repro_share_gen_batch", "repro_shamir_share_batch",
         "repro_reconstruct", "repro_shamir_reconstruct",
         "repro_verify_shares", "repro_share_gen", "repro_shamir_share",
         "repro_flash_attention", "repro_decode_attention",
-        "repro_ssm_scan"}
+        "repro_ssm_scan", "repro_lru_scan"}
     assert all(v == 0 for v in dispatch.launches.values())
 
 
