@@ -10,27 +10,40 @@ non-zero without the final result line):
 
 1. device: the card's name and power limit as nvidia-smi reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-   every instantiation of the attention kernels and of ``lru_scan``
-   must show no stack frame and no spill in ptxas's lines;
+   every instantiation of the attention kernels (flash: float32 on the
+   CUDA cores and bf16 on the tensor cores, each at D up to 32, 64, 128,
+   256; decode: 11 instantiations of the split kernel, and the fold) and
+   of ``lru_scan`` must
+   show no stack frame and no spill in ptxas's lines, and the SASS of
+   every bf16 flash instantiation (``cuobjdump -sass`` of the built
+   library) must hold tensor-core products (HMMA or HGMMA) and
+   asynchronous copies (LDGSTS or UTMALDG);
 3. attention kernels: ``flash_attention`` against its plain version on
    the same CUDA tensors at qwen1.5-0.5b's prefill shape [8, 16, 2048,
    64] causal (bf16 and float32), a ragged Sq = Skv = 1,000, the GQA
    groups of tinyllama-1.1b (32, 4) and llama3.2-1b (32, 8), a window of
-   64, Sq < Skv and D = 128, and at recurrentgemma-9b's D = 256 with 16
-   query heads on one KV head (its prefill shape [8, 16, 2048, 256] in
-   window 2,048, ragged lengths, a binding window of 256);
-   ``decode_attention`` at [8, 16, 64] against a cache of S = 640 at
-   kv_len 1 / 300 / 640 (bf16 and float32 queries on a bf16 cache, and
-   a float32 cache), the GQA group (32, 4), and group 16 × D 256 against
-   S = 2,048 at kv_len 1 / 192 / 1,000 / 2,048; float32 outputs to 2e-5
-   absolute + 1e-4 relative, flash's bf16 outputs to one bf16 step of
-   each value (2^-7 relative) + 2e-5; median times from
-   CUDA events beside the bound, the plain version's time and SDPA's
-   (timed for the table only); ``lru_scan`` (the RG-LRU recurrence) at
-   recurrentgemma-9b's prefill shape [8, 2048, 4096] in float32 and
-   bf16, a ragged [3, 1000, 1000] and a 4,096-step carry at a = 0.9999
-   (also against a float64 scan), each ``torch.equal`` to its plain
-   version, with its time and bound; ``ssm_scan``
+   64, Sq < Skv, D = 128 (float32 and bf16) and D = 32 (bf16), and at
+   recurrentgemma-9b's D = 256 with 16 query heads on one KV head (its
+   prefill shape [8, 16, 2048, 256] in window 2,048, ragged lengths, a
+   binding window of 256); ``decode_attention`` (the split kernel and
+   its fold: partials and the normalized output) at [8, 16, 64] against
+   a cache of S = 640 at kv_len 1 / 7 / 65 / 300 / 640 (bf16 and float32
+   queries on a bf16 cache, and a float32 cache), the GQA group (32, 4),
+   and group 16 × D 256 against S = 2,048 at kv_len 1 / 9 / 192 / 1,000
+   / 2,048 (7 and 9 below one split; 1,000 and the GQA group's 300 end
+   in a ragged split; qwen's one-row heads take one split at any
+   kv_len); float32 outputs to 2e-5 absolute + 1e-4 relative, bf16
+   outputs to one bf16 step of each value (2^-7 relative) + 2e-5;
+   median times from CUDA events beside the bound, the plain version's
+   time and SDPA's (timed for the table only; a decode row's time is
+   the normalized call's, split kernel and fold together, and SDPA's,
+   each from CUDA-graph replays: one call's events would time the
+   host's launch); ``lru_scan``
+   (the RG-LRU recurrence) at recurrentgemma-9b's prefill shape
+   [8, 2048, 4096] in float32 and bf16, a ragged [3, 1000, 1000] and a
+   4,096-step carry at a = 0.9999 (also against a float64 scan), each
+   ``torch.equal`` to its plain version, with its time and bound;
+   ``ssm_scan``
    (the Mamba-1 selective scan) at falcon-mamba-7b's prefill shape
    [8, 2048, 8192], st 16 (bf16 and float32), a ragged S = di = 1,000,
    st 4, and 4,096 steps with small |A| (the carry), with ptxas's
@@ -200,6 +213,36 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 20) -> float:
+    """Median milliseconds of one call of ``fn`` on the card: CUDA events
+    around the replay of a CUDA graph of ``calls`` calls, so the host's
+    launch cost (Python, ctypes, the driver) is taken out and the
+    device's time, gaps between kernels included, stays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -1264,6 +1307,9 @@ FLASH_CASES = [
     ("window64", 2, 16, 16, 1000, 1000, 64, True, 64, "float32"),
     ("sq_below_skv", 2, 16, 16, 100, 700, 64, True, 0, "float32"),
     ("d128_noncausal", 1, 8, 8, 300, 300, 128, False, 0, "float32"),
+    # the bf16 tensor-core kernel's other head-dim buckets
+    ("d128_bf16", 2, 8, 2, 700, 700, 128, True, 0, "bfloat16"),
+    ("d32_bf16", 2, 16, 4, 1000, 1000, 32, True, 100, "bfloat16"),
 ]
 
 
@@ -1330,8 +1376,13 @@ DECODE_CASES = [
     # (b, hq, hkv, s, d, kv_len, q dtype, cache dtype); qwen1.5-0.5b's
     # serve path is batch 8, 16 heads, D 64 against S = 640;
     # recurrentgemma-9b's is batch 8, 16 query heads on one KV head (group
-    # 16), D 256, against a window of S = 2,048 (64-key tiles)
+    # 16), D 256, against a window of S = 2,048; kv_len 7 and 9 take one
+    # split (kernels/decode_attention/kernel.py::split_plan), 1,000 (32
+    # of 32 keys, the last 8) and the GQA group's 300 end in a ragged
+    # split
     (8, 16, 16, 640, 64, 1, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 64, 7, "bfloat16", "bfloat16"),
+    (8, 16, 16, 640, 64, 65, "bfloat16", "bfloat16"),
     (8, 16, 16, 640, 64, 300, "bfloat16", "bfloat16"),
     (8, 16, 16, 640, 64, 640, "bfloat16", "bfloat16"),
     (8, 16, 16, 640, 64, 1, "float32", "bfloat16"),
@@ -1341,7 +1392,9 @@ DECODE_CASES = [
     (8, 32, 4, 640, 64, 300, "float32", "bfloat16"),
     (8, 32, 4, 640, 64, 640, "bfloat16", "bfloat16"),
     (8, 16, 1, 2048, 256, 1, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 9, "bfloat16", "bfloat16"),
     (8, 16, 1, 2048, 256, 192, "bfloat16", "bfloat16"),
+    (8, 16, 1, 2048, 256, 1000, "bfloat16", "bfloat16"),
     (8, 16, 1, 2048, 256, 2048, "bfloat16", "bfloat16"),
     (8, 16, 1, 2048, 256, 192, "float32", "bfloat16"),
     (8, 16, 1, 2048, 256, 1000, "float32", "float32"),
@@ -1354,17 +1407,19 @@ DECODE_TIMED = {(64, 640): "qwen", (256, 2048): "rg"}
 
 def phase_decode_kernel() -> dict:
     """``decode_attention`` against its plain version on the same CUDA
-    tensors (the partials acc, m, l, and the normalized output: float32
-    outputs of exact float32 copies of the inputs, so the float32
-    tolerance holds for every input type); returns the timing rows of
-    the serve paths' longest steps (bf16), by ``DECODE_TIMED``'s name."""
+    tensors: the partials acc, m, l (float32 outputs of exact float32
+    copies of the inputs, so the float32 tolerance holds for every input
+    type), and the normalized output that the fold writes in q's dtype
+    (float32 limits, or one bf16 step for a bf16 q); returns the timing
+    rows of the serve paths' longest steps (bf16), by ``DECODE_TIMED``'s
+    name."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (combine_partials,
                                                       decode_attention,
                                                       decode_attention_partial,
                                                       decode_attention_ref)
-    from repro_torch.kernels.decode_attention.kernel import block_keys
+    from repro_torch.kernels.decode_attention.kernel import split_plan
     rows = {}
     for b, hq, hkv, s, d, kv_len, qdt, kvdt in DECODE_CASES:
         gen = torch.Generator(device="cuda").manual_seed(kv_len + hq)
@@ -1377,23 +1432,30 @@ def phase_decode_kernel() -> dict:
         what = (f"decode [{b},{hq},{hkv},{s},{d}] kv_len {kv_len} "
                 f"{qdt}/{kvdt}")
         got = decode_attention_partial(q, k, v, kv_len=kv_len)
+        out = decode_attention(q, k, v, kv_len=kv_len)
         torch.cuda.synchronize()
         want = decode_attention_ref(q, k, v, kv_len=kv_len)
         for g, w, part in zip(got, want, ("acc", "m", "l")):
             _close(g, w, F32_ATOL, F32_RTOL, f"{what} {part}")
-        out = combine_partials(*(t[None] for t in got))
-        err = _close(out, combine_partials(*(t[None] for t in want)),
+        want_out = combine_partials(*(t[None] for t in want))
+        err = _close(combine_partials(*(t[None] for t in got)), want_out,
                      F32_ATOL, F32_RTOL, f"{what} output")
+        require(out.dtype == q.dtype, f"{what}: output {out.dtype}")
+        rtol = F32_RTOL if q.dtype == torch.float32 else BF16_STEP_RTOL
+        err_out = _close(out, want_out.to(q.dtype), F32_ATOL, rtol,
+                         f"{what} normalized output")
+        splits, chunk = split_plan(b, hkv, kv_len, hq // hkv)
         entry = {"phase": "kernel", "name": "decode_attention",
                  "shape": [b, hq, hkv, s, d], "kv_len": kv_len,
-                 "block_k": block_keys(hq // hkv, d), "q_dtype": qdt,
+                 "splits": splits, "chunk": chunk, "q_dtype": qdt,
                  "cache_dtype": kvdt, "max_abs_err": err,
+                 "normalized_max_abs_err": err_out,
                  "tol": [F32_ATOL, F32_RTOL]}
         timed = DECODE_TIMED.get((d, kv_len))
         if timed and (qdt, kvdt, hq) == ("bfloat16", "bfloat16", 16):
             nbytes = (q.element_size() * b * hq * d
                       + k.element_size() * 2 * b * hkv * kv_len * d
-                      + 4 * (b * hq * d + 2 * b * hq))
+                      + q.element_size() * b * hq * d)
             flops = 4 * b * hq * kv_len * d
             b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
             # one query against the cache cut to kv_len, k and v expanded
@@ -1401,20 +1463,26 @@ def phase_decode_kernel() -> dict:
             q1 = q[:, :, None]
             kc = k[:, :, :kv_len].expand(b, hq, kv_len, d)
             vc = v[:, :, :kv_len].expand(b, hq, kv_len, d)
+            # the card's time from graph replays (a call is ~10-60 us of
+            # device work under ~40 us of host launch cost), and one
+            # call's events, host included, beside it
+            normalized = (lambda: decode_attention(q, k, v, kv_len=kv_len))
+            sdpa = (lambda: F.scaled_dot_product_attention(q1, kc, vc))
             entry.update(
-                ms=cuda_ms(lambda: decode_attention_partial(
-                    q, k, v, kv_len=kv_len), 50),
-                plain_ms=cuda_ms(lambda: decode_attention_ref(
-                    q, k, v, kv_len=kv_len), 10),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q1, kc, vc), 50),
-                normalized_ms=cuda_ms(lambda: decode_attention(
-                    q, k, v, kv_len=kv_len), 50),
+                ms=graph_ms(normalized),
+                plain_ms=cuda_ms(lambda: combine_partials(*(
+                    t[None] for t in decode_attention_ref(
+                        q, k, v, kv_len=kv_len))).to(q.dtype), 10),
+                library_ms=graph_ms(sdpa),
+                partial_ms=graph_ms(lambda: decode_attention_partial(
+                    q, k, v, kv_len=kv_len)),
+                event_ms=cuda_ms(normalized, 50),
+                library_event_ms=cuda_ms(sdpa, 50),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
             rows[timed] = entry
             del q1, kc, vc
         emit(entry)
-        del q, k, v, got, want
+        del q, k, v, got, want, out, want_out
     torch.cuda.empty_cache()
     return rows
 
@@ -1422,7 +1490,8 @@ def phase_decode_kernel() -> dict:
 #: kernel-name parts the prefill and serve traces sum: the attention
 #: kernels, cuBLAS's GEMMs on the H100 (named nvjet_*, or *gemm*) and
 #: PyTorch's elementwise kernels
-PROFILE_NAMES = ("flash_attention_kernel", "decode_attention_kernel",
+PROFILE_NAMES = ("flash_attention_mma_kernel", "flash_attention_kernel",
+                 "decode_attention_kernel", "decode_attention_fold_kernel",
                  "nvjet", "gemm", "elementwise")
 
 
@@ -1455,6 +1524,22 @@ def _profile(fn, names: tuple[str, ...]) -> dict:
                                 for n in names},
             "top": [{"kernel": k[:90], "ms": t, "calls": c}
                     for k, t, c in kernels[:8]]}
+
+
+def _require_split_decode(prof: dict, layers: int, cfg, batch: int,
+                          kv_len: int, what: str) -> None:
+    """The profiled decode step ran the split kernel once per attention
+    layer, and its fold once per layer where the step's plan has several
+    splits: the normalized output comes from the kernels, with no plain
+    combination after them."""
+    from repro_torch.kernels.decode_attention.kernel import split_plan
+    group = cfg.n_heads // cfg.n_kv_heads
+    splits, _ = split_plan(batch, cfg.n_kv_heads, kv_len, group)
+    want = {"decode_attention_kernel": layers,
+            "decode_attention_fold_kernel": layers if splits > 1 else 0}
+    got = {n: prof["kernel_launches"][n] for n in want}
+    require(got == want, f"{what}: the profiled step launched {got}, "
+                         f"expected {want} ({splits} splits)")
 
 
 def phase_prefill() -> int:
@@ -1633,6 +1718,7 @@ def phase_serve() -> int:
     last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
             "index": kv_len - 1}
     prof = _profile(lambda: step(params, cache, last), PROFILE_NAMES)
+    _require_split_decode(prof, cfg.n_layers, cfg, b, kv_len, "serve")
     emit({"phase": "serve", "arch": "qwen1.5-0.5b",
           "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
           "gen": gen, "decode_launches_per_step": launches // kv_len,
@@ -1871,15 +1957,59 @@ def _require_no_stack(kernel: str, count: int) -> list[dict]:
     return entries
 
 
+#: instantiations of each attention kernel: flash in float32 and in bf16
+#: at D up to 32, 64, 128, 256; the decode split kernel with 4 rows a team
+#: at two cache types × four head-dim buckets, and with one row a team
+#: (keys straight to registers) at bf16 D ≤ 32, 64 and float32 D ≤ 32;
+#: its fold
+ATTENTION_INSTANTIATIONS = {"flash_attention_kernel": 4,
+                            "flash_attention_mma_kernel": 4,
+                            "decode_attention_kernel": 11,
+                            "decode_attention_fold_kernel": 1}
+#: SASS that shows the bf16 flash kernel on the tensor cores (mma.sync is
+#: HMMA, wgmma HGMMA) and copying asynchronously (cp.async is LDGSTS, TMA
+#: UTMALDG)
+TENSOR_CORE_SASS = ("HMMA", "HGMMA")
+ASYNC_COPY_SASS = ("LDGSTS", "UTMALDG")
+
+
 def phase_attention_ptxas() -> None:
-    """Every instantiation of the attention kernels (flash: float32 and
-    bf16 × D up to 32, 64, 128, 256; decode: four type pairs × 64- and
-    128-key tiles) keeps everything in registers."""
+    """Every instantiation of the attention kernels keeps everything in
+    registers, and every bf16 flash instantiation's SASS holds
+    tensor-core products and asynchronous copies."""
     emit({"phase": "build", "ptxas_check": {
-        "flash_attention_kernel": _require_no_stack(
-            "flash_attention_kernel", 8),
-        "decode_attention_kernel": _require_no_stack(
-            "decode_attention_kernel", 8)}})
+        kernel: _require_no_stack(kernel, count)
+        for kernel, count in ATTENTION_INSTANTIATIONS.items()}})
+    emit({"phase": "build", "sass_check": _flash_sass()})
+
+
+def _flash_sass() -> dict:
+    """The tensor-core and asynchronous-copy instructions that
+    ``cuobjdump -sass`` shows in each bf16 flash instantiation of the
+    built library."""
+    from repro_torch.kernels import dispatch
+    tool = Path(dispatch._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run(
+        [str(tool), "-sass", dispatch.load_library()["path"]],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "flash_attention_mma_kernel" not in name:
+            continue
+        found[name] = {op: section.count(op) for op in
+                       TENSOR_CORE_SASS + ASYNC_COPY_SASS}
+    want = ATTENTION_INSTANTIATIONS["flash_attention_mma_kernel"]
+    require(len(found) == want, f"cuobjdump shows {len(found)} bf16 flash "
+                                f"instantiations, expected {want}")
+    for name, ops in found.items():
+        require(any(ops[op] for op in TENSOR_CORE_SASS),
+                f"{name}: no tensor-core instruction in its SASS ({ops})")
+        require(any(ops[op] for op in ASYNC_COPY_SASS),
+                f"{name}: no asynchronous copy in its SASS ({ops})")
+    return found
 
 
 def phase_lru_kernel() -> dict:
@@ -2120,8 +2250,9 @@ RG_SERVE_VS_PREFILL_TOL = 1e-3
 #: and equal: the one attention layer sees the same inputs in both
 #: loops), to the sums' order through 4 layers
 RING_STEPS, RING_PROMPT, RING_TOL = 24, 4, 1e-4
-RG_PROFILE_NAMES = ("lru_scan_kernel", "flash_attention_kernel",
-                    "decode_attention_kernel", "nvjet", "gemm",
+RG_PROFILE_NAMES = ("lru_scan_kernel", "flash_attention_mma_kernel",
+                    "flash_attention_kernel", "decode_attention_kernel",
+                    "decode_attention_fold_kernel", "nvjet", "gemm",
                     "elementwise")
 
 
@@ -2265,6 +2396,8 @@ def phase_hybrid_serve(cfg, params) -> int:
     last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
             "index": kv_len - 1}
     prof = _profile(lambda: step(params, cache, last), RG_PROFILE_NAMES)
+    _require_split_decode(prof, layers["attn"], cfg, b,
+                          min(kv_len, cfg.window), "hybrid serve")
     emit({"phase": "hybrid_serve", "arch": cfg.name,
           "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
           "gen": gen, "decode_launches_per_step": launches // kv_len,

@@ -1,11 +1,16 @@
-"""Wrapper of the decode-attention kernel: partials or normalized.
+"""Wrapper of the decode-attention kernels: partials or normalized.
 
 A CPU tensor goes through the plain version (``ref.py``); a CUDA tensor
-goes through the CUDA kernel or raises.  The reference's wrapper sends
+goes through the CUDA kernels or raises.  The reference's wrapper sends
 ``S % 128`` and ``group % 8`` (qwen1.5-0.5b's group is 1) to its oracle;
-the CUDA kernel takes every cache length and group, so no shape is sent
+the CUDA kernels take every cache length, and every group whose rows fit
+a block (group · bucket(D) ≤ 4,096, D ≤ 256), so no shape is sent
 anywhere else.  On the card ``kv_len`` is a host int in ``[1, S]``, and
-q may be float32 or bfloat16 independently of the cache's type.
+q may be float32 or bfloat16 independently of the cache's type.  The
+split kernel and its fold (``kernel.py``) give the partials to
+``decode_attention_partial``, and to ``decode_attention`` the normalized
+result in q's dtype, written by the fold itself: no plain
+``combine_partials`` or cast runs after it on the card.
 """
 
 from __future__ import annotations
@@ -14,12 +19,12 @@ import math
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention.ops import records_grad
-from .kernel import (MAX_SMEM_BYTES, block_keys, decode_attention_cuda,
-                     smem_bytes)
+from .kernel import (MAX_GROUP_DIM, decode_attention_cuda, fits_block,
+                     head_dim_bucket)
 from .ref import combine_partials, decode_attention_ref
 
-#: gridDim.x and gridDim.y carry the KV head and the batch row
-MAX_GRID_XY = 65535
+#: gridDim.y and gridDim.z carry the KV head and the batch row
+MAX_GRID_YZ = 65535
 
 NO_BACKWARD = ("the decode-attention kernel has no backward (nor has the "
                "reference's); decode runs without autograd")
@@ -43,18 +48,29 @@ def check_inputs(q, k, v, kv_len) -> None:
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("decode_attention: the head dim of q, k and v must "
                          "be contiguous")
-    if b > MAX_GRID_XY or k.shape[1] > MAX_GRID_XY:
-        raise ValueError(f"decode_attention: at most {MAX_GRID_XY} KV heads "
+    if b > MAX_GRID_YZ or k.shape[1] > MAX_GRID_YZ:
+        raise ValueError(f"decode_attention: at most {MAX_GRID_YZ} KV heads "
                          f"and batch rows per launch")
+    if not 1 <= d <= 256:
+        raise ValueError(f"decode_attention: head dim {d} outside [1, 256]")
     group = hq // k.shape[1]
-    need = smem_bytes(group, d, block_keys(group, d))
-    if need > MAX_SMEM_BYTES:
+    if not fits_block(group, d):
         raise ValueError(f"decode_attention: group {group} × head dim {d} "
-                         f"needs {need} bytes of shared memory, above "
-                         f"{MAX_SMEM_BYTES}")
+                         f"(bucket {head_dim_bucket(d)}) is above the "
+                         f"{MAX_GROUP_DIM} rows × columns a block holds")
     if not isinstance(kv_len, int) or not 1 <= kv_len <= k.shape[2]:
         raise ValueError(f"decode_attention: kv_len must be a host int in "
                          f"[1, {k.shape[2]}] on the card, got {kv_len!r}")
+
+
+def _prepare(q, k, v, kv_len, sm_scale):
+    """The checks of a CUDA call; returns (kv_len, scale)."""
+    if records_grad(q, k, v):
+        raise NotImplementedError(NO_BACKWARD)
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    check_inputs(q, k, v, kv_len)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
+    return kv_len, scale
 
 
 def decode_attention_partial(q, k, v, *, kv_len=None, sm_scale=None):
@@ -63,17 +79,17 @@ def decode_attention_partial(q, k, v, *, kv_len=None, sm_scale=None):
     if dispatch.on_cpu(q, k, v):
         return decode_attention_ref(q, k, v, kv_len=kv_len,
                                     sm_scale=sm_scale)
-    if records_grad(q, k, v):
-        raise NotImplementedError(NO_BACKWARD)
-    kv_len = k.shape[2] if kv_len is None else kv_len
-    check_inputs(q, k, v, kv_len)
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
+    kv_len, scale = _prepare(q, k, v, kv_len, sm_scale)
     return decode_attention_cuda(q, k, v, kv_len=kv_len, scale=scale)
 
 
 def decode_attention(q, k, v, *, kv_len=None, sm_scale=None):
     """Normalized decode attention for an unsharded cache: ``[B,Hq,D]``
     of q's dtype."""
-    acc, m, l = decode_attention_partial(q, k, v, kv_len=kv_len,
+    if dispatch.on_cpu(q, k, v):
+        acc, m, l = decode_attention_ref(q, k, v, kv_len=kv_len,
                                          sm_scale=sm_scale)
-    return combine_partials(acc[None], m[None], l[None]).to(q.dtype)
+        return combine_partials(acc[None], m[None], l[None]).to(q.dtype)
+    kv_len, scale = _prepare(q, k, v, kv_len, sm_scale)
+    return decode_attention_cuda(q, k, v, kv_len=kv_len, scale=scale,
+                                 normalize=True)

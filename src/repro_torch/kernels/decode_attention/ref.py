@@ -48,13 +48,29 @@ def decode_attention_ref(q, k, v, *, kv_len=None, sm_scale=None):
     return acc, m, l
 
 
+def fold_partials(accs, ms, ls):
+    """Plain version of the fold kernel: partials of key ranges along a
+    leading axis, merged in that axis's order (no atomics, so the order
+    is fixed) into unnormalized float32 partials of their union.
+
+    accs: ``[P,B,H,D]``, ms/ls: ``[P,B,H]`` -> (acc ``[B,H,D]``,
+    m ``[B,H]``, l ``[B,H]``): ``M = max_i m_i``,
+    ``acc = Σ_i acc_i·e^{m_i−M}``, ``l = Σ_i l_i·e^{m_i−M}``.
+    """
+    m = ms.max(dim=0).values
+    acc = torch.zeros_like(accs[0])
+    l = torch.zeros_like(ls[0])
+    for acc_i, m_i, l_i in zip(accs, ms, ls):
+        w = torch.exp(m_i - m)
+        acc = acc + acc_i * w[..., None]
+        l = l + l_i * w
+    return acc, m, l
+
+
 def combine_partials(accs, ms, ls):
     """Merge shard partials along a leading shard axis.
 
     accs: ``[P,B,H,D]``, ms/ls: ``[P,B,H]`` -> normalized ``[B,H,D]``.
     """
-    m_glob = ms.max(dim=0).values
-    w = torch.exp(ms - m_glob[None])
-    num = (accs * w[..., None]).sum(dim=0)
-    den = (ls * w).sum(dim=0)
-    return num / den[..., None]
+    acc, _, l = fold_partials(accs, ms, ls)
+    return acc / l[..., None]

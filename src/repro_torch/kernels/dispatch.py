@@ -74,9 +74,10 @@ _SIGNATURES = {
     "repro_flash_attention": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
                               *(ctypes.c_longlong,) * 9, ctypes.c_float,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-    # q, k, v, acc, m, l, b, hq, hkv, d, kv_len, block_k, q strides (b, h),
-    # k/v strides (b, h, s), scale, q dtype, kv dtype, stream
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, *(ctypes.c_int,) * 6,
+    # q, k, v, acc, m, l, out, the splits' acc, m, l, b, hq, hkv, d,
+    # kv_len, splits, chunk, q strides (b, h), k/v strides (b, h, s),
+    # scale, q dtype, kv dtype, stream
+    "repro_decode_attention": (*(_P,) * 10, *(ctypes.c_int,) * 7,
                                *(ctypes.c_longlong,) * 8, ctypes.c_float,
                                ctypes.c_int, ctypes.c_int, _P),
     # x, dt, bc, cc, a, y, b, s, di, st, bc/cc strides (b, s), dtype,

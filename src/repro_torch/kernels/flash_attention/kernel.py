@@ -1,8 +1,12 @@
 """Launch of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/kernel.py:104``
-(``flash_attention_pallas``).  The source's header note says what bounds
-it on the H100 and how its design answers that.
+(``flash_attention_pallas``).  One C entry takes both types: bfloat16
+runs on the tensor cores (mma.sync, a cp.async ring of bf16 K/V tiles,
+the softmax in registers, P fed as two bf16 halves), float32 on the CUDA
+cores, since TF32 would break the float32 tolerance.  The source's
+header note says what bounds each on the H100 and how its design answers
+that.
 """
 
 from __future__ import annotations

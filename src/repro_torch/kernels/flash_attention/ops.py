@@ -4,9 +4,11 @@ A CPU tensor goes through the plain version (``ref.attention_ref``); a
 CUDA tensor goes through the CUDA kernel or raises.  The reference's
 wrapper sends shapes its TPU tiling cannot cover (``Sq % 8``,
 ``Skv % 128``) to its oracle; the CUDA kernel masks the ragged tails
-itself, so no shape is sent anywhere else.  The kernel has no backward
-(nor has the reference's, ROADMAP queue 3, finding 1): a call on the
-card while autograd records raises.
+itself, so no shape is sent anywhere else.  bfloat16 inputs run on the
+tensor cores (``flash_attention_mma_kernel``), float32 inputs on the CUDA
+cores (``flash_attention_kernel``): ``csrc/flash_attention.cu``'s note
+says why.  The kernel has no backward (nor has the reference's, ROADMAP
+queue 3, finding 1): a call on the card while autograd records raises.
 """
 
 from __future__ import annotations
@@ -22,8 +24,11 @@ from .ref import attention_ref
 #: the kernel's widest head (``csrc/flash_attention.cu``: instantiated
 #: for D up to 32, 64, 128 and 256)
 MAX_HEAD_DIM = 256
-#: gridDim.y and gridDim.z carry the query head and the batch row
+#: gridDim.y and gridDim.z carry the query head and the batch row in
+#: float32, the batch row and the q-tile in bfloat16
 MAX_GRID_YZ = 65535
+#: query rows of a bfloat16 q-tile (gridDim.z): at most MAX_GRID_YZ tiles
+BF16_TILE_ROWS = 64
 
 NO_BACKWARD = ("the flash-attention kernel has no backward: the "
                "reference's cannot be differentiated either (ROADMAP queue "
@@ -55,6 +60,11 @@ def check_inputs(q, k, v) -> None:
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention: at most {MAX_GRID_YZ} heads and "
                          f"batch rows per launch, got {hq}, {b}")
+    if q.dtype == torch.bfloat16 \
+            and -(-q.shape[2] // BF16_TILE_ROWS) > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: at most "
+                         f"{MAX_GRID_YZ * BF16_TILE_ROWS} bfloat16 query "
+                         f"rows per launch, got {q.shape[2]}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim of q, k and v must "
                          "be contiguous")

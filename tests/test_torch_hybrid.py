@@ -80,9 +80,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import decode_attention_partial
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.kernel import (MAX_SMEM_BYTES,
-                                                         block_keys,
-                                                         smem_bytes)
+from repro_torch.kernels.decode_attention.kernel import (fits_block,
+                                                         split_plan)
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lru_scan import lru_scan, lru_scan_ref
@@ -622,9 +621,17 @@ def test_decode_plain_version_at_group_16_head_dim_256():
     for got, want in ((acc, acc_j), (m, m_j), (l, l_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
-    # a 64-key tile fits the card's shared memory where 128 would not;
-    # qwen1.5-0.5b keeps its 128-key tile
-    assert smem_bytes(16, 256, 128) == 303_808 > MAX_SMEM_BYTES
-    assert smem_bytes(16, 256, 64) == 168_384 and block_keys(16, 256) == 64
-    assert block_keys(1, 64) == 128 and smem_bytes(1, 64, 128) == 67_084
+    # the split kernel's plan: a block holds group 16 × D 256 (teams of
+    # 32 lanes, 4 rows each); recurrentgemma-9b's 8 (KV head, batch row)
+    # pairs become 32 splits of 64 keys at kv_len 2,048, 256 blocks,
+    # about two waves of 132 SMs
+    assert fits_block(16, 256) and fits_block(1, 64)
+    assert split_plan(8, 1, 2048, 16) == (32, 64)
+    assert split_plan(2, 1, 70, 16) == (5, 16)
     decode_ops.check_inputs(tq, tk, tv, 70)
+    # 32 rows × D 256 is past what a block holds
+    assert not fits_block(32, 256)
+    with pytest.raises(ValueError, match="group 32"):
+        decode_ops.check_inputs(torch.zeros(1, 32, 256),
+                                torch.zeros(1, 1, 8, 256),
+                                torch.zeros(1, 1, 8, 256), 8)
