@@ -88,6 +88,13 @@ _SIGNATURES = {
     "repro_lru_scan": (_P, _P, _P, *(ctypes.c_int,) * 4, _P),
 }
 
+#: C functions of the library that launch no kernel: the selective
+#: scan's launch plan
+_UTILITIES = {
+    # b, di, st, dtype, out[10]
+    "repro_ssm_scan_plan": (*(ctypes.c_int,) * 4, _P),
+}
+
 #: element-type codes of the float kernels' C interface
 #: (``csrc/attention.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -223,7 +230,7 @@ def _load() -> tuple[ctypes.CDLL, dict]:
         info.update(built=True, seconds=time.perf_counter() - t0)
     info["log"] = (out_dir / "build.log").read_text()
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in {**_SIGNATURES, **_UTILITIES}.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -235,6 +242,14 @@ def _load() -> tuple[ctypes.CDLL, dict]:
 def load_library() -> dict:
     """Build (if needed) and load the kernels; returns build facts."""
     return _load()[1]
+
+
+def utility(name: str):
+    """A C function of the library that launches no kernel
+    (``_UTILITIES``), built and bound; it returns a CUDA error code."""
+    if name not in _UTILITIES:
+        raise KeyError(f"{name} is not a utility of the kernel library")
+    return getattr(_load()[0], name)
 
 
 def launch(name: str, *args) -> None:

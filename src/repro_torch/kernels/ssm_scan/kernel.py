@@ -7,6 +7,8 @@ design answers that.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import dispatch
@@ -31,3 +33,23 @@ def ssm_scan_cuda(x, dt, bc, cc, a):
                         st, *bc.stride()[:2], *cc.stride()[:2],
                         dispatch.DTYPE_CODES[x.dtype])
     return y
+
+
+#: the launch plan's fields, in ``repro_ssm_scan_plan``'s order
+PLAN_KEYS = ("halves", "states_a_thread", "threads", "blocks",
+             "blocks_an_sm", "sms", "registers", "smem_bytes", "tile_steps",
+             "stages")
+
+
+def launch_plan(b: int, di: int, st: int, dtype) -> dict:
+    """How the kernel would launch on this card for ``[b, ·, di]`` with
+    ``st`` states: its geometry, the registers ptxas gave it, the blocks
+    an SM holds at once and the waves the grid takes."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    rc = dispatch.utility("repro_ssm_scan_plan")(
+        b, di, st, dispatch.DTYPE_CODES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"repro_ssm_scan_plan failed with error {rc}")
+    plan = dict(zip(PLAN_KEYS, out))
+    plan["waves"] = plan["blocks"] / (plan["blocks_an_sm"] * plan["sms"])
+    return plan
