@@ -42,7 +42,8 @@ non-zero without the final result line):
    (the RG-LRU recurrence) at recurrentgemma-9b's prefill shape
    [8, 2048, 4096] in float32 and bf16, a ragged [3, 1000, 1000] and a
    4,096-step carry at a = 0.9999 (also against a float64 scan), each
-   ``torch.equal`` to its plain version, with its time and bound;
+   ``torch.equal`` to its plain version, with its time (by events and by
+   CUDA-graph replay) and bound;
    ``ssm_scan``
    (the Mamba-1 selective scan) at falcon-mamba-7b's prefill shape
    [8, 2048, 8192], st 16 (bf16 and float32), a ragged S = di = 1,000,
@@ -76,23 +77,41 @@ non-zero without the final result line):
 7. audit: the norm-bound dealer audit at n=1,024, s=10,000 with a
    ``scale`` and a ``sign_flip`` dealer, both blamed, and a
    ``malformed`` dealer that fails the round;
-8. streaming: chunked aggregation equals the whole vector, and the card
+8. cohort: cohort-sampled rounds through ``FLSimulation(...,
+   cohort=1000)`` over a registry of 100,000 parties at s = 10,000, a
+   ``FixedPointConfig(frac_bits=15, clip=32.0)`` codec, three rounds per
+   scheme, with a seeded 10 % of the registry leaving the eligible pool
+   between rounds: each round's cohort equal to ``sample_cohort`` on the
+   CPU (and every survivor of the previous pool that ranked in still in
+   it), its committee equal to ``elect_among`` on the CPU, its counters
+   equal to ``subrounds·2·c·(c−1)`` of b and to
+   ``costmodel.phase2_cohort_msg_num/size``, its mean ``torch.equal`` to
+   the same round through the plain versions on the card, one launch of
+   the scheme's share and reconstruct kernels; the draw's ms, the Phase I
+   and Phase II wall seconds and one traced round's device busy share;
+9. scenarios: the eight simulation scenarios of the reference's battery
+   (honest, two non-IID splits, churn, stragglers, a scaled and a
+   sign-flipped dealer with their honest twins, a malformed dealer)
+   through ``run_scenario`` on the card: counters equal to the mirror,
+   both poisoned dealers banned, the malformed dealer's round aborted by
+   the verify's ``ValueError``, every final accuracy above 0.5;
+10. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
-9. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-10. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
+11. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+12. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
     path's share kernels) against their plain versions, ``torch.equal``,
     at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
     and at a ragged D = 10,001 with ``hi_base`` 192, with times and
     bounds; then ``reconstruct`` and ``shamir_reconstruct`` of the
     largest leaf's shares against their plain versions, timed alike;
-11. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
+13. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
     backend rule picks gloo; ``reduce_scatter`` and ``all_gather`` stage
     through host memory): every mode and scheme of
     ``fl.spmd.secure_aggregate``, each rank's mean bit-identical to the
     others and, in the secure modes, to the same aggregation composed
     from the plain versions on the card; then two train steps of the
     smoke config, with identical parameters on every rank;
-12. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
+14. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
     at full width and depth, a world of one, global batch 8 x seq 128,
     four steps each of ``plain``, ``two_phase`` additive and
     ``two_phase`` Shamir: every step's aggregated gradient, leaf by leaf,
@@ -103,14 +122,14 @@ non-zero without the final result line):
     trainer's own "tok/s" lines count it), then one profiled step split
     into its ``fwd_bwd``, ``secure_aggregate`` and ``adamw_update``
     ranges and one unchecked step with its peak device memory;
-13. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
+15. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
     random weights from seed 0, batch 8 x prompt 2,048 in the config's
     bf16: 24 flash launches per call, wall time and tok/s per call, the
     logits against the same prefill through the plain attention on the
     card (in float32 compute to 1e-3; in bf16 within the distance, as a
     root mean square over the logits, that bf16 compute puts between the
     plain logits and float32's), and one profiled call;
-14. serve: the ``launch.serve`` loop (prefill by decode, then greedy
+16. serve: the ``launch.serve`` loop (prefill by decode, then greedy
     generation) on qwen1.5-0.5b at full size, batch 8, prompt 512,
     gen 128: in float32 compute, every step's logits against the plain
     step on the card fed the same tokens (each with its own bf16 cache)
@@ -118,34 +137,34 @@ non-zero without the final result line):
     first generated token's logits against the prefill's to 5e-2; then
     in the config's bf16, 24 decode launches per step, ms per step,
     tok/s, peak memory and one profiled step's device busy share;
-15. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
+17. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
     7.27 B parameters, random weights from seed 0), ``make_prefill`` at
     batch 8 x 2,048 in bf16: 64 launches of the selective-scan kernel a
     call, wall time, tok/s, peak memory and one profiled call; the
     logits against the chunked plain path at batch 2 (float32 compute to
     1e-3; bf16 within the distance, as an RMS, that bf16 compute puts
     between the plain logits and float32's);
-16. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
+18. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's logits against the
     prefill's in float32 compute (1e-3), then in bf16 ms per step, tok/s,
     peak memory and one profiled step (the SSM step runs no hand-written
     kernel, as the reference's);
-17. hybrid_prefill: recurrentgemma-9b at full width and depth (38
+19. hybrid_prefill: recurrentgemma-9b at full width and depth (38
     layers, 10,444,984,320 parameters, random weights from seed 0),
     ``make_prefill`` at batch 8 x 2,048 in bf16: 26 ``lru_scan`` and 12
     flash launches a call, wall time, tok/s, peak memory and one
     profiled call; the logits against the plain path (chunked scan,
     plain attention) at batch 2 (float32 compute to 1e-3; bf16 within
     the bf16-vs-float32 RMS);
-18. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
+20. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's float32 logits
     against the prefill's with a float32 cache (1e-3) and with the bf16
     cache (5e-2), then in bf16 12 decode launches a step, ms per step,
     tok/s, peak memory and one profiled step;
-19. ring: the smoke config (window 8) served through the kernels for 24
+21. ring: the smoke config (window 8) served through the kernels for 24
     steps, so its 8-slot ring wraps twice, each step's float32 logits
     against the plain step fed the same tokens (1e-4);
-20. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+22. summary: a ``{"kernels": [...]}`` line (the attention kernels also
     at D = 256, under ``d256``), then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
@@ -490,11 +509,12 @@ def phase_verify_kernel() -> dict:
 
 
 def plain_round_mean(flats, scheme: str, fp, m: int, seed: int,
-                     chunk: int, ids=None):
-    """A round-0 mean at full committee, recomputed on the card through
+                     chunk: int, ids=None, round_index: int = 0):
+    """A round's mean at full committee, recomputed on the card through
     the plain share and reconstruct versions, party chunk by party chunk,
     with a fold of its own: what the transport's chunk loop, key
-    derivation and fold must reproduce bit for bit."""
+    derivation and fold must reproduce bit for bit.  ``ids`` are the
+    uploaders' global ids (a cohort's, say; default ``0..n-1``)."""
     import torch
     from repro_torch.core import philox
     from repro_torch.core.field import MERSENNE_P, U32_MASK, fadd
@@ -504,10 +524,12 @@ def plain_round_mean(flats, scheme: str, fp, m: int, seed: int,
                                             shamir_share_batch_ref)
     from repro_torch.kernels.share_gen import share_gen_batch_ref
     n = flats.shape[0]
-    # round 0: party p keys its stream with id p
+    # party p of round r keys its stream with (r << 24) | p, a 64-bit
+    # stream id passed as its (lo, hi) words
     ids = (torch.arange(n, device=flats.device) if ids is None
            else torch.as_tensor(ids, device=flats.device))
-    k0, k1 = philox.derive_key(seed, ids)
+    stream_lo = ((round_index << 24) & U32_MASK) | ids
+    k0, k1 = philox.derive_key(seed, (stream_lo, (round_index << 24) >> 32))
     keys = torch.stack([k0, k1], dim=1)
     acc = None
     for lo in range(0, n, chunk):
@@ -597,11 +619,40 @@ def phase_rounds(flats, ref_mean) -> dict:
     return launches
 
 
-def phase_profile(flats) -> None:
-    """Device time by kernel over one n=10,000 round per scheme."""
+def _trace(fn) -> tuple[float, list]:
+    """Host wall ms of one call of ``fn`` up to a synchronize, and the
+    kernels a ``torch.profiler`` trace shows on the card: ``(name, ms,
+    calls)``, longest first.  Kernel rows only: an aten op's row repeats
+    the time of the kernels it launched, so summing every row would
+    count it twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    require(rows, "the trace shows no kernel on the card")
+    return wall_ms, sorted(rows, key=lambda r: -r[1])
+
+
+def _busy_share(fn) -> dict:
+    """Host wall and device busy time of one traced call of ``fn``."""
+    wall_ms, rows = _trace(fn)
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms}
+
+
+def phase_profile(flats) -> None:
+    """Device time by kernel over one n=10,000 round per scheme."""
     from repro_torch.core.fixed_point import FixedPointConfig
     from repro_torch.fl import make_transport
     for scheme, algebra in (("additive", "ring"), ("shamir", "field")):
@@ -610,21 +661,7 @@ def phase_profile(flats) -> None:
                             scheme=scheme, chunk=1024, device="cuda")
         tr.elect()
         tr.aggregate(flats, round_index=0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.aggregate(flats, round_index=1)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # kernel rows only: an aten op's row repeats the time of the
-        # kernels it launched, so summing every row would count it twice
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        require(rows, f"{scheme}: the trace shows no kernel on the card")
-        rows.sort(key=lambda r: -r[1])
+        wall_ms, rows = _trace(lambda: tr.aggregate(flats, round_index=1))
         busy_ms = sum(r[1] for r in rows)
         emit({"phase": "profile", "scheme": scheme, "wall_ms": wall_ms,
               "device_busy_ms": busy_ms,
@@ -830,6 +867,215 @@ def phase_audit(flats) -> int:
           "norms_honest_and_poisoned": norms,
           "equal_to_plain_honest_mean": True, "malformed_raises": True})
     return launches["repro_verify_shares"]
+
+
+#: the cohort acceptance row (DESIGN.md §12): registry, cohort, model
+#: size (the n = 10,000 round's s), committee, vote batch, seed, rounds
+COHORT_SHAPE = dict(n=100_000, c=1_000, s=10_000, m=3, b=10, seed=0,
+                    rounds=3)
+#: share of the registry that leaves the eligible pool between rounds
+COHORT_DROP = 0.1
+
+
+def phase_cohort() -> dict:
+    """Cohort-sampled rounds on the card: a registry of 100,000 parties,
+    a cohort of 1,000 a round, s = 10,000, three rounds per scheme
+    through ``FLSimulation(..., cohort=1000)``, with a seeded 10 % of the
+    registry leaving the eligible pool between rounds.  Returns the
+    launches per kernel."""
+    import torch
+    from repro_torch.core import committee, costmodel
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import FLSimulation
+    from repro_torch.fl.cohort import sample_cohort
+    from repro_torch.kernels import dispatch
+    n, c, s, m, b, seed, rounds = (COHORT_SHAPE[k] for k in (
+        "n", "c", "s", "m", "b", "seed", "rounds"))
+    p = costmodel.CostParams(n=n, e=1, s=s, m=m, b=b)
+    p2_phases = ("phase2_upload", "phase2_exchange", "phase2_broadcast")
+    totals = {}
+    for scheme, algebra in (("additive", "ring"), ("shamir", "field")):
+        # a 1,000-party sum needs more headroom than the default codec's
+        # 511 (ring) and 255 (field) summands: 2,047 and 1,023 here
+        fp = FixedPointConfig(frac_bits=15, clip=32.0, algebra=algebra)
+        sim = FLSimulation(n, m=m, b=b, seed=seed, scheme=scheme, fp=fp,
+                           cohort=c, device="cuda")
+        tr = sim.transports["two_phase"]
+        drops = np.random.RandomState(seed + 1)
+        data = np.random.RandomState(seed + 2)
+        pool = set(range(n))
+        for r in range(rounds):
+            kept = None
+            if r:
+                prev = pool
+                gone = drops.choice(sorted(prev), int(COHORT_DROP * n),
+                                    replace=False)
+                pool = prev - set(gone.tolist())
+                # ranks are per id: whoever ranked into round r's cohort
+                # of the previous pool and is still eligible ranks in
+                kept = set(sample_cohort(prev, c, seed, r)) & pool
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drawn = sample_cohort(pool, c, seed, r)
+            draw_ms = (time.perf_counter() - t0) * 1e3
+            want_ids = sample_cohort(pool, c, seed, r, device="cpu")
+            require(drawn == want_ids,
+                    f"{scheme} round {r}: the cohort drawn on the card "
+                    "differs from the one drawn on the CPU")
+            flats = torch.from_numpy(
+                (data.randn(c, s) * 0.1).astype(np.float32)).cuda()
+            before = {k: (v.msg_num, v.msg_size)
+                      for k, v in sim.net.phases.items()}
+            dispatch.reset_launches()
+            phase1_s, com = _timed(lambda: sim.elect_committee(
+                eligible=pool))
+            ids = tr.cohort_ids
+            phase2_s, (mean, _) = _timed(lambda: sim.aggregate(
+                "two_phase", flats, party_ids=ids))
+            counts = dict(dispatch.launches)
+            require(ids == want_ids, f"{scheme} round {r}: cohort {ids[:5]}"
+                    f"... differs from sample_cohort on the CPU")
+            lost = sorted((kept or set()) - set(ids))
+            require(not lost, f"{scheme} round {r}: survivors {lost} of "
+                    "the previous pool lost their rank")
+            ref = committee.elect_among(ids, m, b, seed + r, device="cpu")
+            require(tuple(com) == ref.committee,
+                    f"{scheme} round {r}: committee {com} differs from "
+                    f"elect_among on the CPU {ref.committee}")
+
+            def delta(ph):
+                st = sim.net.stats(ph)
+                was = before.get(ph, (0, 0))
+                return st.msg_num - was[0], st.msg_size - was[1]
+            ph1 = delta("phase1")
+            ph2 = [delta(ph) for ph in p2_phases]
+            want1 = ref.rounds * 2 * c * (c - 1)
+            require(ph1 == (want1, want1 * b),
+                    f"{scheme} round {r}: phase 1 counters {ph1}, Eqs. 3-4 "
+                    f"per cohort give {(want1, want1 * b)}")
+            require(sum(x[0] for x in ph2)
+                    == costmodel.phase2_cohort_msg_num(p, c)
+                    and sum(x[1] for x in ph2)
+                    == costmodel.phase2_cohort_msg_size(p, c),
+                    f"{scheme} round {r}: phase 2 counters {ph2} differ "
+                    "from costmodel.phase2_cohort_msg_num/size")
+            require(mean.shape == (s,) and bool(torch.isfinite(mean).all()),
+                    f"{scheme} round {r}: mean is not finite of shape "
+                    f"({s},)")
+            plain = plain_round_mean(flats, scheme, fp, m, seed, tr.chunk,
+                                     ids=list(ids), round_index=r)
+            require(torch.equal(mean.view(torch.int32),
+                                plain.view(torch.int32)),
+                    f"{scheme} round {r}: the cohort's mean differs from "
+                    "the same round through the plain versions on the card")
+            # the fixed-point rounding of c inputs, as in phase_rounds
+            ref_mean = flats.double().mean(0)
+            err = float((mean.double() - ref_mean).abs().max())
+            tol = (4 * 0.5 / fp.scale / math.sqrt(c)
+                   + 2.0 ** -23 * float(ref_mean.abs().max()))
+            require(err <= tol, f"{scheme} round {r}: mean error {err} "
+                    f"above {tol}")
+            share_k = ("repro_share_gen_batch" if scheme == "additive"
+                       else "repro_shamir_share_batch")
+            rec_k = ("repro_reconstruct" if scheme == "additive"
+                     else "repro_shamir_reconstruct")
+            require(counts[share_k] == 1 and counts[rec_k] == 1,
+                    f"{scheme} round {r}: kernel launches {counts}")
+            for key in (share_k, rec_k):
+                totals[key] = totals.get(key, 0) + counts[key]
+            emit({"phase": "cohort", "scheme": scheme, "round": r,
+                  "registry": n, "eligible": len(pool), "cohort": c, "s": s,
+                  "m": m, "committee": list(com),
+                  "election_subrounds": ref.rounds, "draw_ms": draw_ms,
+                  "phase1_wall_s": phase1_s, "phase2_wall_s": phase2_s,
+                  "phase1_msg_num": ph1[0],
+                  "phase2_msg_num": sum(x[0] for x in ph2),
+                  "phase2_msg_size": sum(x[1] for x in ph2),
+                  "survivors_kept_rank": None if kept is None else len(kept),
+                  "mean_max_err": err, "mean_tol": tol,
+                  "equal_to_plain_round": True, "launches": counts})
+            del flats, mean, plain, ref_mean
+        # one more round, traced: the device's busy share of a whole
+        # cohort round (election and aggregation)
+        flats = torch.from_numpy(
+            (data.randn(c, s) * 0.1).astype(np.float32)).cuda()
+
+        def one_round():
+            sim.elect_committee(eligible=pool)
+            sim.aggregate("two_phase", flats, party_ids=tr.cohort_ids)
+        emit({"phase": "profile", "scheme": f"{scheme}_cohort",
+              "registry": n, "cohort": c, "s": s, **_busy_share(one_round)})
+        del flats
+    torch.cuda.empty_cache()
+    return totals
+
+
+def scenario_battery():
+    """The eight simulation scenarios of the reference's battery
+    (``benchmarks/scenarios.py``), at their own parameters."""
+    from repro_torch.fl.scenarios import (ChurnConfig, DealerConfig,
+                                          ScenarioConfig, StragglerConfig)
+    # straggler seed 7 puts party 3, the one party outside the seed-0
+    # committee (0, 1, 2), over the 0.6 s deadline every round
+    straggler = StragglerConfig(deadline_s=0.6, median_s=0.3, sigma=1.2,
+                                seed=7)
+    return (
+        ScenarioConfig(name="honest_iid", epochs=4),
+        ScenarioConfig(name="noniid_alpha05", alpha=0.5, epochs=4),
+        ScenarioConfig(name="noniid_alpha01", alpha=0.1, epochs=4),
+        ScenarioConfig(name="churn_elastic", epochs=5,
+                       churn=ChurnConfig(seed=3)),
+        ScenarioConfig(name="stragglers_lognormal", epochs=4,
+                       straggler=straggler),
+        ScenarioConfig(name="poisoned_dealer_scale", epochs=4,
+                       norm_bound=8.0, honest_twin=True,
+                       dealers=(DealerConfig(party=3, mode="scale",
+                                             round_index=1),)),
+        ScenarioConfig(name="poisoned_dealer_signflip", epochs=4,
+                       norm_bound=8.0, honest_twin=True,
+                       dealers=(DealerConfig(party=3, mode="sign_flip",
+                                             round_index=1),)),
+        ScenarioConfig(name="malformed_dealer", epochs=3, norm_bound=8.0,
+                       expect_abort=True,
+                       dealers=(DealerConfig(party=2, mode="malformed",
+                                             round_index=1),)),
+    )
+
+
+def phase_scenarios() -> dict:
+    """The adversarial scenario battery through ``run_scenario`` on the
+    card (the port's seeded init).  Returns the launches per kernel."""
+    from repro_torch.fl.scenarios import run_scenario
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launches()
+    for scn in scenario_battery():
+        rec = run_scenario(scn, device="cuda")
+        if scn.expect_abort:
+            require(rec["aborted"] and rec["error"].startswith(
+                "ValueError: dealer share verification failed"),
+                f"{scn.name}: expected the verify's ValueError, got "
+                f"{rec['error']!r}")
+        else:
+            require(rec["counters_match"],
+                    f"{scn.name}: counters {rec['counters']} differ from "
+                    f"the mirror {rec['counters_expected']}")
+            require(rec["final_accuracy"] > 0.5,
+                    f"{scn.name}: final accuracy {rec['final_accuracy']}")
+        if scn.dealers and not scn.expect_abort:
+            require(rec["banned"] == [3], f"{scn.name}: banned "
+                    f"{rec['banned']}, the poisoned dealer is 3")
+            require(rec.get("honest_accuracy", 0.0) > 0.5,
+                    f"{scn.name}: the honest twin did not run or scored "
+                    f"{rec.get('honest_accuracy')}")
+        emit({"phase": "scenario", "name": rec["name"],
+              "wall_s": rec["wall_s"],
+              "final_accuracy": rec.get("final_accuracy"),
+              "final_loss": rec.get("final_loss"),
+              "honest_accuracy": rec.get("honest_accuracy"),
+              "banned": rec.get("banned"), "aborted": rec["aborted"],
+              "error": rec["error"],
+              "counters_match": rec.get("counters_match")})
+    return {k: v for k, v in dispatch.launches.items() if v}
 
 
 def phase_streaming() -> None:
@@ -2130,6 +2376,9 @@ def phase_lru_kernel() -> dict:
             b_ms, b_by = bound(nbytes, 2 * n, FP32_OPS_PER_S)
             entry.update(
                 ms=cuda_ms(lambda: lru_scan(a, bb), 20),
+                # device time, the host's launch taken out, as the other
+                # kernels' rows
+                graph_ms=graph_ms(lambda: lru_scan(a, bb), 10, 20),
                 plain_ms=cuda_ms(lambda: lru_scan_ref(a, bb), 1),
                 # no single PyTorch call computes a linear recurrence
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
@@ -2684,6 +2933,9 @@ def main(argv=None) -> int:
         (flats[:1024] * 0.1).contiguous())
     del flats, vss_flats
     torch.cuda.empty_cache()
+    for phase in (phase_cohort, phase_scenarios):
+        for key, count in phase().items():
+            launches[key] = launches.get(key, 0) + count
     phase_streaming()
     phase_fedavg()
     rows.update(phase_single_kernels())

@@ -4,8 +4,8 @@ A copy of the closed forms in ``repro/core/costmodel.py`` (the port
 imports nothing of the reference).  ``Msg_Num`` counts point-to-point
 messages; ``Msg_Size`` is in model elements (``s``) or vote elements
 (``b``).  The counting transports of ``fl.transport`` must equal these
-exactly.  The top-k, VSS, cohort and per-link forms come with the
-slices that port those features.
+exactly.  The top-k and per-link coordinator forms come with the
+slices that port those features (ROADMAP queue 1, items 6 and 8).
 """
 
 from __future__ import annotations
@@ -188,4 +188,62 @@ def summary_vss(p: CostParams, degree: int | None = None) -> dict:
         "vss_overhead_factor": vss_overhead_factor(p, degree),
         "phase1_msg_num_reelect": phase1_msg_num_reelect(p),
         "phase1_msg_size_reelect": phase1_msg_size_reelect(p),
+    }
+
+
+# -- Cohort-sampled rounds (Eqs. 3-6 per cohort) -----------------------------
+#
+# With a registry of ``n`` parties and a sampled per-round cohort of
+# ``c`` (DESIGN.md §12) the election and the upload legs run over the
+# cohort while the aggregate broadcast still reaches the whole registry.
+# Cohort mode implies per-round election (one subround assumed here; the
+# counting transports count the subrounds they ran).  Legs, per epoch:
+#
+# * Phase I   — ``2·c·(c−1)`` messages of ``b``   (Eqs. 3-4 at n=c)
+# * uploads   — ``c·m``       messages of ``s``
+# * exchange  — ``m−1``       messages of ``s``
+# * broadcast — ``n``         messages of ``s``   (whole registry)
+
+
+def phase1_cohort_msg_num(p: CostParams, c: int) -> int:
+    return p.e * 2 * c * (c - 1)
+
+
+def phase1_cohort_msg_size(p: CostParams, c: int) -> int:
+    return phase1_cohort_msg_num(p, c) * p.b
+
+
+def phase2_cohort_msg_num(p: CostParams, c: int) -> int:
+    return (c * p.m + (p.m - 1) + p.n) * p.e
+
+
+def phase2_cohort_msg_size(p: CostParams, c: int) -> int:
+    return phase2_cohort_msg_num(p, c) * p.s
+
+
+def twophase_cohort_msg_num(p: CostParams, c: int) -> int:
+    return phase1_cohort_msg_num(p, c) + phase2_cohort_msg_num(p, c)
+
+
+def twophase_cohort_msg_size(p: CostParams, c: int) -> int:
+    return phase1_cohort_msg_size(p, c) + phase2_cohort_msg_size(p, c)
+
+
+def cohort_reduction_factor(p: CostParams, c: int) -> float:
+    """Whole-registry two-phase elements with per-round election / cohort
+    elements."""
+    full = (p.e * phase1_msg_size(p)) + phase2_msg_size(p)
+    return full / twophase_cohort_msg_size(p, c)
+
+
+def summary_cohort(p: CostParams, c: int) -> dict:
+    return {
+        "n": p.n, "m": p.m, "e": p.e, "s": p.s, "b": p.b, "c": c,
+        "phase1_cohort_msg_num": phase1_cohort_msg_num(p, c),
+        "phase1_cohort_msg_size": phase1_cohort_msg_size(p, c),
+        "phase2_cohort_msg_num": phase2_cohort_msg_num(p, c),
+        "phase2_cohort_msg_size": phase2_cohort_msg_size(p, c),
+        "twophase_cohort_msg_num": twophase_cohort_msg_num(p, c),
+        "twophase_cohort_msg_size": twophase_cohort_msg_size(p, c),
+        "cohort_reduction_factor": cohort_reduction_factor(p, c),
     }

@@ -1,5 +1,7 @@
 from .faults import RoundOutcome, apply_faults, quorum_met, resolve_outcome
 from .rounds import FedAvgConfig, FedAvgResult, run_fedavg
+from .scenarios import (ChurnConfig, DealerConfig, ScenarioConfig,
+                        StragglerConfig, run_scenario)
 from .simulation import FLSimulation, UnknownPartyError
 from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
                         SPMDTransport, Transport, TwoPhaseTransport,
@@ -8,6 +10,7 @@ from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
 __all__ = ["FLSimulation", "Network", "PhaseStats", "FedAvgConfig",
            "FedAvgResult", "run_fedavg", "RoundOutcome", "apply_faults",
            "quorum_met", "resolve_outcome", "Transport", "P2PTransport",
-           "SPMDTransport",
-           "TwoPhaseTransport", "PlainTransport", "make_transport",
+           "TwoPhaseTransport", "PlainTransport", "SPMDTransport",
+           "make_transport", "ChurnConfig", "DealerConfig",
+           "ScenarioConfig", "StragglerConfig", "run_scenario",
            "UnknownPartyError"]

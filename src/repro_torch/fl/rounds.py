@@ -5,7 +5,9 @@ runs ``local_steps`` local iterations from the shared model, and the
 local models are averaged under MPC (two-phase or P2P), with the
 crash/straggler/elastic handling of ``fl.faults``, and the blame of the
 malicious-secure round: a blamed member or dealer is banned for the rest
-of the run and the committee is re-elected without it.  Parameters are
+of the run and the committee is re-elected without it.  With ``cohort``
+each round samples its cohort from the current membership and elects
+over it (DESIGN.md §12).  Parameters are
 dicts of tensors on the run's device; they flatten in sorted-key order,
 as the reference's pytrees do.
 """
@@ -19,11 +21,14 @@ from typing import Callable
 import torch
 
 from repro_torch.core.aggregation import flatten
+from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.fixed_point import FixedPointConfig
+from repro_torch.deprecation import warn_deprecated
 from repro_torch.kernels import dispatch
+from .cohort import sample_cohort
 from .faults import RoundOutcome, apply_faults
 from .simulation import FLSimulation
-from .transport import reject_later
+from .transport import check_kernel_backend, reject_later
 
 
 @dataclasses.dataclass
@@ -37,28 +42,73 @@ class FedAvgConfig:
     vote_batch: int = 10
     seed: int = 0
     deadline_s: float | None = None
+    #: top-k sparsification ratio (a later slice of the port: any value
+    #: but None/0 raises)
+    compress_topk: float | None = None
+    error_feedback: bool = True
     #: element-chunk size of the streaming aggregation (None = whole
     #: vector; the bits are the same either way)
     chunk_elems: int | None = None
-    shamir_degree: int | None = None
-    fp: FixedPointConfig | None = None
+    # -- typed aggregation fields -------------------------------------------
+    #: transport backend: "sim" (the wire is a later slice and raises)
+    backend: str = "sim"
     #: Feldman verifiable secret sharing (Shamir only — DESIGN.md §10)
     vss: bool = False
+    shamir_degree: int | None = None
+    fp: FixedPointConfig | None = None
+    #: kept for the reference's field list; must stay None (the device
+    #: picks the path)
+    kernel_backend: str | None = None
     #: L2 norm bound of the dealer audit (needs vss — DESIGN.md §11)
     norm_bound: float | None = None
     #: injected dealer adversary {party: (mode, round)} (DESIGN.md §11)
     dealer_tamper: dict | None = None
-    #: re-run Alg. 2 every epoch
+    #: re-run Alg. 2 every epoch (implied by ``cohort``)
     reelect_each_round: bool = False
-    # -- knobs of later slices of the port: raise when set ----------------
-    compress_topk: float | None = None
-    backend: str = "sim"
+    #: extra options of the wire backend (ignored by the simulation)
+    wire_kwargs: dict | None = None
+    #: per-round cohort size: ``n_parties`` becomes the registry and
+    #: each round runs over a seeded sampled cohort (DESIGN.md §12)
     cohort: int | None = None
+    #: DEPRECATED — extra aggregation kwargs for ``FLSimulation``; use
+    #: the typed fields above (or ``repro_torch.api.ExperimentSpec``).
+    #: Kept working behind a ``ReproDeprecationWarning`` with the same
+    #: behaviour; an unknown key raises there with a did-you-mean hint
     agg_kwargs: dict | None = None
 
     def __post_init__(self):
-        reject_later(compress_topk=self.compress_topk, backend=self.backend,
-                     cohort=self.cohort, agg_kwargs=self.agg_kwargs)
+        if self.compress_topk is not None and \
+                not 0.0 <= self.compress_topk <= 1.0:
+            raise ValueError(
+                f"compress_topk={self.compress_topk} must be in [0, 1]")
+        reject_later(compress_topk=self.compress_topk, backend=self.backend)
+        check_kernel_backend(self.kernel_backend)
+
+    def compression(self) -> CompressionConfig | None:
+        if not self.compress_topk:
+            return None
+        return CompressionConfig(enabled=True,
+                                 top_k_ratio=self.compress_topk,
+                                 error_feedback=self.error_feedback)
+
+    def simulation_kwargs(self) -> dict:
+        """Aggregation kwargs for ``FLSimulation`` from the typed fields,
+        with the deprecated ``agg_kwargs`` dict laid over them last (every
+        key it sets wins, as before; it warns)."""
+        kw = dict(backend=self.backend, vss=self.vss,
+                  shamir_degree=self.shamir_degree, fp=self.fp,
+                  kernel_backend=self.kernel_backend,
+                  norm_bound=self.norm_bound,
+                  dealer_tamper=self.dealer_tamper,
+                  reelect_each_round=self.reelect_each_round,
+                  wire_kwargs=self.wire_kwargs, cohort=self.cohort)
+        if self.agg_kwargs:
+            warn_deprecated(
+                "FedAvgConfig.agg_kwargs is deprecated: use the typed "
+                "FedAvgConfig fields (backend=, vss=, cohort=, ...) or "
+                "repro_torch.api.ExperimentSpec")
+            kw.update(self.agg_kwargs)
+        return kw
 
 
 @dataclasses.dataclass
@@ -89,21 +139,29 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
     local_train_step(params, batch) -> params (one local iteration)
     party_batches(party, epoch, it) -> batch
     membership_schedule(epoch) -> set of live party ids (elastic)
+
+    ``cfg`` may also be anything with ``fedavg_config()`` — a
+    ``repro_torch.api.ExperimentSpec`` — which is resolved first.
     """
+    if hasattr(cfg, "fedavg_config"):
+        cfg = cfg.fedavg_config()
     device = dispatch.resolve_device(device)
     if isinstance(init_params, torch.nn.Module):
         init_params = dict(init_params.named_parameters())
     params = {k: torch.as_tensor(v).detach().to(device)
               for k, v in init_params.items()}
     sim = FLSimulation(cfg.n_parties, m=cfg.committee, scheme=cfg.scheme,
-                       seed=cfg.seed, b=cfg.vote_batch, fp=cfg.fp,
-                       shamir_degree=cfg.shamir_degree,
-                       chunk_elems=cfg.chunk_elems, device=device,
-                       vss=cfg.vss, norm_bound=cfg.norm_bound,
-                       dealer_tamper=cfg.dealer_tamper,
-                       reelect_each_round=cfg.reelect_each_round)
+                       seed=cfg.seed, b=cfg.vote_batch,
+                       chunk_elems=cfg.chunk_elems,
+                       compression=cfg.compression(), device=device,
+                       **cfg.simulation_kwargs())
     _, unflatten = flatten(params)
-    if cfg.protocol == "two_phase":
+    # cohort mode (read off the transport, so the deprecated agg_kwargs
+    # path sets it alike): each round elects over its sampled cohort
+    # instead of the single and elastic elections
+    cohort_size = (sim.transports["two_phase"].cohort
+                   if cfg.protocol == "two_phase" else None)
+    if cfg.protocol == "two_phase" and not cohort_size:
         sim.elect_committee()
     history, outcomes = [], []
     t0 = time.perf_counter()
@@ -116,8 +174,17 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
             new_members = set(membership_schedule(epoch)) - banned
             if new_members != members:
                 members = new_members
-                if cfg.protocol == "two_phase":
+                if cfg.protocol == "two_phase" and not cohort_size:
                     sim.elect_committee()  # elastic re-election (Phase I)
+
+        round_members = members
+        if cohort_size:
+            # this round's cohort from the current membership: the draw
+            # the transport makes, so the loop and the transport agree
+            sim.elect_committee(eligible=members)
+            round_members = set(sim.transports["two_phase"].cohort_ids)
+            assert round_members == set(sample_cohort(
+                members, cohort_size, cfg.seed, epoch, device=device))
 
         committee = sim.committee if cfg.protocol == "two_phase" else None
         # reconstruction quorum: all m shares for additive, degree+1
@@ -125,11 +192,11 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
         if cfg.scheme == "additive":
             threshold = cfg.committee
         else:
-            degree = cfg.shamir_degree
+            degree = sim.transports["two_phase"].shamir_degree
             threshold = (cfg.committee - 1 if degree is None else degree) + 1
         try:
             outcome: RoundOutcome = apply_faults(
-                members, latency_s or {}, cfg.deadline_s,
+                round_members, latency_s or {}, cfg.deadline_s,
                 seed=cfg.seed, round_index=epoch, committee=committee,
                 reconstruct_threshold=threshold if committee else None)
         except ValueError:
@@ -138,7 +205,7 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
             # metadata in this simulation, so the round proceeds without
             # the committee-quorum floor (as in the reference)
             outcome = apply_faults(
-                members, latency_s or {}, cfg.deadline_s,
+                round_members, latency_s or {}, cfg.deadline_s,
                 seed=cfg.seed, round_index=epoch)
         outcomes.append(outcome)
 
@@ -167,7 +234,9 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
                 outcome.alive -= newly
                 banned |= newly
                 members = members - newly
-                sim.elect_committee()
+                if not cohort_size:
+                    # cohort mode elects at the top of every round
+                    sim.elect_committee()
         params = unflatten(mean)
         if eval_fn is not None:
             history.append(eval_fn(params, epoch))

@@ -3,19 +3,26 @@
 Counterpart of ``repro/fl/simulation.py``: a thin shell holding one
 counting transport per protocol, all sharing one ``Network``, so the
 counters can be held against the closed forms of Eqs. 1–8
-(``core.costmodel``).  The malicious-security knobs (``vss``,
-``reelect_each_round``, ``norm_bound``, ``dealer_tamper``) go to the
-two-phase transport; the wire backend and cohorts belong to later
-slices and raise ``NotImplementedError``.
+(``core.costmodel``; ``expected_costs``).  The malicious-security knobs
+(``vss``, ``reelect_each_round``, ``norm_bound``, ``dealer_tamper``) and
+``cohort`` go to the two-phase transport.  A ``repro_torch.api.
+ExperimentSpec`` may stand in for the keyword arguments; an unknown
+keyword raises ``TypeError`` with a did-you-mean hint.  The wire
+backend is a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import difflib
+import inspect
+
+from repro_torch.core import costmodel
 from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
 
 from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
-                        Transport, TwoPhaseTransport, reject_later)
+                        Transport, TwoPhaseTransport, check_kernel_backend,
+                        reject_later)
 
 __all__ = ["FLSimulation", "Network", "PhaseStats", "UnknownPartyError"]
 
@@ -28,20 +35,46 @@ class UnknownPartyError(ValueError):
 
 class FLSimulation:
     """n-party simulation driving the transports over one Network, on
-    ``device`` (the card unless ``"cpu"`` is asked for)."""
+    ``device`` (the card unless ``"cpu"`` is asked for).
 
-    def __init__(self, n: int, m: int = 3, scheme: str = "additive",
+    ``kernel_backend`` must stay ``None`` (the device picks the path);
+    ``wire_kwargs`` belongs to the wire backend and is ignored by the
+    simulation, as in the reference.
+    """
+
+    def __init__(self, n, m: int = 3, scheme: str = "additive",
                  seed: int = 0, b: int = 10,
                  fp: FixedPointConfig | None = None,
                  shamir_degree: int | None = None,
-                 chunk: int = 2048, chunk_elems: int | None = None,
-                 device="cuda", compression=None, backend: str = "sim",
+                 chunk: int = 2048, kernel_backend: str | None = None,
+                 chunk_elems: int | None = None,
+                 compression=None, backend: str = "sim",
+                 wire_kwargs: dict | None = None,
                  vss: bool = False, reelect_each_round: bool = False,
                  norm_bound: float | None = None,
                  dealer_tamper: dict | None = None,
-                 cohort: int | None = None):
-        reject_later(compression=compression, backend=backend,
-                     cohort=cohort)
+                 cohort: int | None = None, device="cuda", **unknown):
+        if hasattr(n, "flsim_kwargs"):
+            # an ExperimentSpec as the sole argument (and the device)
+            self.__init__(**n.flsim_kwargs(), device=device)
+            return
+        if unknown:
+            known = tuple(p for p in inspect.signature(
+                FLSimulation.__init__).parameters
+                if p not in ("self", "unknown"))
+            hints = []
+            for k in sorted(unknown):
+                close = difflib.get_close_matches(k, known, n=1)
+                hints.append(f"{k!r}" + (f" (did you mean {close[0]!r}?)"
+                                         if close else ""))
+            raise TypeError(
+                f"FLSimulation got unknown aggregation kwargs: "
+                f"{', '.join(hints)}; known kwargs are {known}")
+        check_kernel_backend(kernel_backend)
+        if backend not in ("sim", "wire"):
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             "'sim' or 'wire'")
+        reject_later(compression=compression, backend=backend)
         self.device = dispatch.resolve_device(device)
         self.n = n
         self.m = m
@@ -49,6 +82,7 @@ class FLSimulation:
         self.seed = seed
         self.scheme = scheme
         self.fp = fp
+        self.backend = backend
         self.net = Network()
         self.round = 0
         kw = dict(m=m, b=b, scheme=scheme, seed=seed, net=self.net, fp=fp,
@@ -62,7 +96,8 @@ class FLSimulation:
             # re-election is the committee's Phase I
             "two_phase": TwoPhaseTransport(
                 n, vss=vss, reelect_each_round=reelect_each_round,
-                norm_bound=norm_bound, dealer_tamper=dealer_tamper, **kw),
+                norm_bound=norm_bound, dealer_tamper=dealer_tamper,
+                cohort=cohort, **kw),
         }
 
     @property
@@ -71,9 +106,14 @@ class FLSimulation:
 
     # -- Phase I ----------------------------------------------------------
 
-    def elect_committee(self) -> tuple[int, ...]:
-        """Alg. 2 with counted messages (P2P MPC on b-vectors)."""
-        return self.transports["two_phase"].elect(self.round)
+    def elect_committee(self, eligible=None) -> tuple[int, ...]:
+        """Alg. 2 with counted messages (P2P MPC on b-vectors).
+
+        ``eligible`` (cohort mode) restricts the sampling pool to the
+        current membership (``run_fedavg``'s); ignored otherwise.
+        """
+        return self.transports["two_phase"].elect(self.round,
+                                                  eligible=eligible)
 
     # -- protocol dispatch -------------------------------------------------
 
@@ -88,7 +128,8 @@ class FLSimulation:
         return mean, self.net.stats()
 
     def _check_party_ids(self, party_ids) -> None:
-        bad = sorted({int(i) for i in party_ids} - set(range(self.n)))
+        bad = sorted(i for i in {int(i) for i in party_ids}
+                     if not 0 <= i < self.n)
         if bad:
             raise UnknownPartyError(
                 f"party_ids contains ids not registered with this "
@@ -108,6 +149,17 @@ class FLSimulation:
             committee_tamper=committee_tamper)
         self.round += 1
         return mean, self.net.stats()
+
+    # -- paper-equation cross-check -----------------------------------------
+
+    def expected_costs(self, s: int, e: int,
+                       cohort: int | None = None) -> dict:
+        """The closed forms at this simulation's n, m, b (per cohort of
+        ``cohort`` when given)."""
+        p = costmodel.CostParams(n=self.n, e=e, s=s, m=self.m, b=self.b)
+        if cohort is not None:
+            return costmodel.summary_cohort(p, cohort)
+        return costmodel.summary(p)
 
     def phase2_stats(self) -> PhaseStats:
         tot = PhaseStats()

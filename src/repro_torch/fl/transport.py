@@ -9,7 +9,9 @@ Counterpart of the counting transports of ``repro/fl/transport.py``:
   m−1 chain exchanges, n broadcasts, Eqs. 5–6), with party dropouts and
   Shamir committee dropouts; with ``vss=True`` the malicious-secure
   round: Feldman commitments, member-row verification, blame, eviction
-  and re-election, and the per-dealer norm audit (DESIGN.md §10–11).
+  and re-election, and the per-dealer norm audit (DESIGN.md §10–11);
+  with ``cohort=c`` each round runs over a seeded cohort of ``c``
+  parties sampled from the registry of ``n`` (DESIGN.md §12).
 
 The party-side math runs through ``SecureAggregator`` on the
 transport's device.  Knobs of later slices of the port raise
@@ -32,42 +34,56 @@ from repro_torch.core.field import to_field, to_i32, words_like
 from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.verify_shares import verify_shares
+from .cohort import sample_cohort
 from .faults import (DEALER_TAMPER_MODES, POISON_SCALE, TAMPER_FLIP_MASK,
                      TAMPER_SEED_XOR, resolve_outcome, update_norm)
 
 __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
            "SPMDTransport", "Transport", "TwoPhaseTransport",
-           "make_transport", "reject_later"]
+           "check_kernel_backend", "make_transport", "not_ported",
+           "reject_later"]
 
 #: Knobs of the reference that later slices of the port carry over
 #: (ROADMAP.md, queue 1), and the slice each belongs to.
 LATER_SLICES = {
-    "cohort": "the cohort slice (queue 1, item 7)",
-    "eligible": "the cohort slice (queue 1, item 7)",
-    "agg_kwargs": "the typed experiment API of the cohort slice "
-                  "(queue 1, item 7)",
     "compression": "top-k compression (queue 1, item 6)",
     "compress_topk": "top-k compression (queue 1, item 6)",
     "backend": "the wire transport (queue 1, item 8)",
 }
 
 
+def not_ported(what: str, knob: str) -> NotImplementedError:
+    """The error for ``what``, a part of the later slice that ``knob``
+    belongs to."""
+    return NotImplementedError(
+        f"{what} is not ported yet: it belongs to {LATER_SLICES[knob]} "
+        "of the PyTorch port")
+
+
 def reject_later(**knobs) -> None:
     """Raise ``NotImplementedError`` for a later-slice knob that is set.
 
-    A knob at its default (``None``, ``False``, empty, or a ported
-    ``backend``: ``"sim"``, ``"spmd"``) passes.
+    A knob at its default (falsy, a disabled ``CompressionConfig``, or
+    a ported ``backend``: ``"sim"``, ``"spmd"``) passes.
     """
     for name, value in knobs.items():
         if name == "backend" and value in ("sim", "spmd"):
             continue
-        if value is None or value is False or (
-                isinstance(value, (dict, tuple, list, set))
-                and not value):
+        if not value or getattr(value, "enabled", True) is False:
             continue
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet: it belongs to "
-            f"{LATER_SLICES[name]} of the PyTorch port")
+        raise not_ported(f"{name}={value!r}", name)
+
+
+def check_kernel_backend(kernel_backend) -> None:
+    """The reference's ``kernel_backend`` picks a Pallas dispatch mode;
+    the port has one rule instead (the tensor's device picks the kernel
+    or its plain version), so only ``None`` is accepted."""
+    if kernel_backend is not None:
+        raise ValueError(
+            f"kernel_backend={kernel_backend!r} has no meaning in the "
+            "PyTorch port: the tensor's device picks the path (the CUDA "
+            "kernel on the card, its plain version on the CPU); leave it "
+            "None")
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +267,14 @@ class TwoPhaseTransport(_SimTransport):
     from the mean (``phase2_audit``).  ``dealer_tamper`` injects the
     dealer adversary, ``{party: (mode, round)}``; ``committee_tamper=``
     of ``aggregate`` injects the member adversary, ``{member: mode}``.
+
+    ``cohort=c`` turns on cohort-sampled rounds (DESIGN.md §12): ``n``
+    is the registry, and each round runs over a cohort of ``c`` parties
+    that ``fl.cohort.sample_cohort`` draws from the registry minus the
+    evicted (further restricted by ``eligible=``).  Cohort mode elects
+    every round, over the round's cohort (``elect_among``, 2·c·(c−1)
+    messages of b a subround), and the aggregate still reaches all
+    ``n`` parties, as ``costmodel.summary_cohort`` counts.
     """
 
     protocol = "two_phase"
@@ -260,8 +284,20 @@ class TwoPhaseTransport(_SimTransport):
                  norm_bound: float | None = None,
                  dealer_tamper: dict | None = None,
                  cohort: int | None = None, **kw):
-        reject_later(cohort=cohort)
         super().__init__(n, **kw)
+        if cohort is not None:
+            cohort = int(cohort)
+            if not 1 <= cohort <= n:
+                raise ValueError(
+                    f"cohort={cohort} must be in 1..n={n} (the cohort "
+                    "is sampled from the registered population)")
+            if cohort < self.m:
+                raise ValueError(
+                    f"cohort={cohort} cannot seat a committee of "
+                    f"m={self.m}")
+        self.cohort = cohort
+        #: the current round's sampled cohort (global ids, sorted)
+        self.cohort_ids: tuple[int, ...] | None = None
         if vss and self.scheme != "shamir":
             raise ValueError(
                 "verifiable secret sharing needs the Shamir scheme "
@@ -314,17 +350,36 @@ class TwoPhaseTransport(_SimTransport):
 
     # -- Phase I ----------------------------------------------------------
 
-    def elect(self, round_index: int = 0) -> tuple[int, ...]:
+    def elect(self, round_index: int = 0,
+              eligible=None) -> tuple[int, ...]:
         """Alg. 2 with counted messages (P2P MPC on b-vectors), without
-        the evicted parties and weighted by reputation."""
-        result = committee_mod.elect(self.n, self.m, self.b,
-                                     self.seed + round_index,
-                                     exclude=self.evicted,
-                                     reputation=self.reputation or None,
-                                     device=self.device)
+        the evicted parties and weighted by reputation.
+
+        In cohort mode the voters are the round's cohort, sampled from
+        ``eligible`` (default: the registry) minus the evicted; outside
+        it ``eligible`` is ignored.
+        """
+        if self.cohort is not None:
+            pool = (set(range(self.n)) if eligible is None
+                    else {int(i) for i in eligible})
+            pool -= self.evicted
+            self.cohort_ids = sample_cohort(pool, self.cohort, self.seed,
+                                            round_index, device=self.device)
+            result = committee_mod.elect_among(
+                self.cohort_ids, self.m, self.b, self.seed + round_index,
+                exclude=self.evicted, reputation=self.reputation or None,
+                device=self.device)
+            voters = len(self.cohort_ids)
+        else:
+            result = committee_mod.elect(self.n, self.m, self.b,
+                                         self.seed + round_index,
+                                         exclude=self.evicted,
+                                         reputation=self.reputation or None,
+                                         device=self.device)
+            voters = self.n
         # each election round is one P2P additive MPC exchange of
         # b-element messages (shares + partial sums)
-        self.net.send_batch(result.rounds * 2 * self.n * (self.n - 1),
+        self.net.send_batch(result.rounds * 2 * voters * (voters - 1),
                             self.b, "phase1")
         self.committee = result.committee
         self._elected_round = round_index
@@ -335,8 +390,12 @@ class TwoPhaseTransport(_SimTransport):
     def aggregate(self, flats, party_ids=None, *, round_index: int = 0,
                   committee_dropout: Sequence[int] = (),
                   committee_tamper: dict | None = None, eligible=None):
-        reject_later(eligible=eligible)
-        if self.reelect_each_round and self._elected_round != round_index:
+        if self.cohort is not None:
+            # cohort mode elects every round, over the round's cohort
+            if self._elected_round != round_index:
+                self.elect(round_index, eligible=eligible)
+        elif self.reelect_each_round \
+                and self._elected_round != round_index:
             # per-round re-election: Alg. 2 again, without the evicted
             # members and with reputation-weighted scores
             self.elect(round_index)
@@ -349,7 +408,16 @@ class TwoPhaseTransport(_SimTransport):
                 "would silently return garbage")
         flats = self._as_batch(flats)
         l, s = int(flats.shape[0]), int(flats.shape[1])
+        if party_ids is None and self.cohort is not None:
+            party_ids = self.cohort_ids
         ids = self._ids(party_ids, l)
+        if self.cohort is not None:
+            stray = set(ids) - set(self.cohort_ids)
+            if stray:
+                raise ValueError(
+                    f"party_ids {sorted(stray)} are not in round "
+                    f"{round_index}'s sampled cohort "
+                    f"{self.cohort_ids} — only cohort members upload")
         # the committee sums l encodings — same headroom bound as P2P
         self.agg.fp.validate_for_parties(l)
         com = self.committee

@@ -14,8 +14,12 @@ rows of the global batch.  The backend follows the rule of
 defaults include ``--arch tinyllama-1.1b``, whose fp32 state takes the
 MPC-FSDP layout, a later slice: the port raises for it, and runs
 qwen1.5-0.5b (and the smoke configs) in the replicated layout.
-Checkpointing (``--ckpt-dir``), ``--spec``, ``--production-mesh``,
-``--tp`` above 1 and ``--compress-topk`` raise ``NotImplementedError``.
+``--spec`` takes an ``ExperimentSpec`` (``repro_torch.api``) as a JSON
+file or inline JSON and sets the protocol, scheme, committee, seed,
+compress-topk and chunk-elems from it, as the reference does; the model
+and loop flags stay on the command line.  Checkpointing
+(``--ckpt-dir``), ``--production-mesh``, ``--tp`` above 1 and
+``--compress-topk`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,10 +67,32 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--spec", default="")
+    ap.add_argument("--spec", default="",
+                    help="ExperimentSpec JSON (file path or inline JSON): "
+                         "sets protocol/scheme/committee/seed/"
+                         "compress-topk/chunk-elems from the spec; model "
+                         "and training-loop flags stay on the CLI")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
+
+
+def apply_spec(args) -> None:
+    """Overwrite the aggregation flags of ``args`` from ``--spec``."""
+    import json
+
+    from repro_torch.api import ExperimentSpec
+    if args.spec.lstrip().startswith("{"):
+        spec = ExperimentSpec.from_json(json.loads(args.spec))
+    else:
+        with open(args.spec) as fh:
+            spec = ExperimentSpec.from_json(json.load(fh))
+    args.protocol = spec.protocol
+    args.scheme = spec.scheme
+    args.committee = spec.m
+    args.seed = spec.seed
+    args.compress_topk = spec.compress_topk or 0.0
+    args.chunk_elems = spec.chunk_elems or 0
 
 
 def run(args, observe=None) -> dict:
@@ -79,9 +105,7 @@ def run(args, observe=None) -> dict:
     if args.ckpt_dir:
         raise NotImplementedError(CKPT_LATER)
     if args.spec:
-        raise NotImplementedError(
-            "--spec is not ported yet: the typed experiment API belongs to "
-            "the cohort slice (ROADMAP queue 1, item 7) of the PyTorch port")
+        apply_spec(args)
     if args.production_mesh or args.tp != 1:
         raise NotImplementedError(
             "the port has no tensor parallelism and no pod mesh: each party "

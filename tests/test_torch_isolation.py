@@ -7,7 +7,8 @@
 * every entry point defaults to the CUDA device and raises
   ``RuntimeError`` when there is none, instead of falling back to the CPU;
 * every knob of a later slice raises ``NotImplementedError`` naming its
-  ROADMAP item.
+  ROADMAP item, and the knobs of the slices already ported reach the
+  transport.
 """
 
 import ast
@@ -190,9 +191,7 @@ def _train_knob(name):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(vss=True, cohort=3), dict(cohort=3),
-    dict(reelect_each_round=True, cohort=3), dict(compress_topk=0.1),
-    dict(backend="wire"), dict(norm_bound=1.0, agg_kwargs={"vss": True}),
+    dict(compress_topk=0.1), dict(backend="wire"),
     "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "enc_dec",
     "prefill", "ckpt_dir", "starcoder2", "layernorm", "window", "serve_tp",
 ])
@@ -261,12 +260,16 @@ def test_later_slice_transport_options_raise_not_implemented():
     assert isinstance(tr, SPMDTransport) and tr.mode == "psum"
     with pytest.raises(NotImplementedError, match="wire"):
         make_transport("two_phase", 4, backend="wire", device="cpu")
+    # the cohort slice's options are ported: eligible= restricts the
+    # pool in cohort mode and is ignored outside it
     tr = make_transport("two_phase", 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="cohort slice"):
-        tr.aggregate(torch.zeros(4, 8), eligible={0, 1, 2})
-    with pytest.raises(NotImplementedError, match="cohort slice"):
-        make_transport("two_phase", 4, scheme="shamir", vss=True, cohort=3,
-                       device="cpu")
+    mean = tr.aggregate(torch.zeros(4, 8), eligible={0, 1, 2})
+    assert mean.shape == (8,) and tr.cohort is None
+    tr = make_transport("two_phase", 4, scheme="shamir", vss=True, cohort=3,
+                        device="cpu")
+    mean = tr.aggregate(torch.zeros(3, 8), eligible={0, 1, 2, 3})
+    assert mean.shape == (8,) and len(tr.cohort_ids) == 3
+    assert set(tr.committee) <= set(tr.cohort_ids)
 
 
 @pytest.mark.parametrize("knob", [
@@ -280,4 +283,26 @@ def test_malicious_security_knobs_are_ported(knob):
     sim = FLSimulation(4, scheme="shamir", device="cpu", **knob)
     tr = sim.transports["two_phase"]
     assert tr.vss == cfg.vss
+    assert tr.reelect_each_round == cfg.reelect_each_round
+
+
+@pytest.mark.parametrize("knob", [
+    dict(vss=True, cohort=3), dict(cohort=3),
+    dict(reelect_each_round=True, cohort=3),
+    dict(norm_bound=1.0, agg_kwargs={"vss": True}),
+])
+def test_cohort_slice_knobs_are_ported(knob):
+    from repro_torch.deprecation import ReproDeprecationWarning
+    from repro_torch.fl import FedAvgConfig, FLSimulation
+    cfg = FedAvgConfig(n_parties=4, scheme="shamir", **knob)
+    if cfg.agg_kwargs:
+        with pytest.warns(ReproDeprecationWarning, match="agg_kwargs"):
+            kw = cfg.simulation_kwargs()
+    else:
+        kw = cfg.simulation_kwargs()
+    sim = FLSimulation(4, scheme="shamir", device="cpu", **kw)
+    tr = sim.transports["two_phase"]
+    assert tr.cohort == knob.get("cohort")
+    assert tr.vss == (cfg.vss or bool((cfg.agg_kwargs or {}).get("vss")))
+    assert tr.norm_bound == cfg.norm_bound
     assert tr.reelect_each_round == cfg.reelect_each_round
