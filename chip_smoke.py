@@ -89,29 +89,52 @@ non-zero without the final result line):
    the same round through the plain versions on the card, one launch of
    the scheme's share and reconstruct kernels; the draw's ms, the Phase I
    and Phase II wall seconds and one traced round's device busy share;
-9. scenarios: the eight simulation scenarios of the reference's battery
-   (honest, two non-IID splits, churn, stragglers, a scaled and a
-   sign-flipped dealer with their honest twins, a malformed dealer)
-   through ``run_scenario`` on the card: counters equal to the mirror,
-   both poisoned dealers banned, the malformed dealer's round aborted by
-   the verify's ``ValueError``, every final accuracy above 0.5;
-10. streaming: chunked aggregation equals the whole vector, and the card
+9. scenarios: the reference's battery through ``run_scenario`` on the
+   card: the eight simulation scenarios (honest, two non-IID splits,
+   churn, stragglers, a scaled and a sign-flipped dealer with their
+   honest twins, a malformed dealer) and the two wire scenarios
+   (``churn_stragglers_wire``, ``poisoned_dealer_wire``: n = 8 party
+   worker processes on the card): counters equal to the mirror, every
+   poisoned dealer banned, the malformed dealer's round aborted by the
+   verify's ``ValueError``, every final accuracy above 0.5, each
+   record's wall time;
+10. wire: the wire transport (``make_transport(backend="wire")``: a
+   coordinator on the host, 8 party worker processes spawned with
+   ``--device cuda``, the warm-up barrier on), n = 8, m = 3, s =
+   2,500,000 (three chunks of the default 2^20, the last 402,848), two
+   rounds each of additive and Shamir under the hub and the tree relay:
+   each mean ``torch.equal`` to the same round through the sim transport
+   on the card and within the fixed-point bound of the float64 mean,
+   every party alive, the counters equal to Eqs. 3-6 and to the sim's
+   phase by phase, the coordinator's data bytes equal to
+   ``costmodel.coordinator_data_bytes``, and, from the workers' per-round
+   log records, one share launch a chunk in every party and one
+   reconstruct launch on the final member, on the card; worker start-up,
+   warm-up, Phase I and Phase II wall seconds and MB/s through the
+   coordinator.  Then a Shamir VSS round trio at s = 10,000 under the
+   tree with per-round re-election: a member flips its regional sums in
+   round 1 and is blamed, condemned and evicted (that round equal to the
+   sim's round without its region, the next to the honest mean), with
+   ``verify_shares`` launches in every member's record; and one cohort
+   round (registry 8, cohort 6, hub) whose cohort equals
+   ``sample_cohort`` on the CPU and whose mean equals the sim's;
+11. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
-11. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-12. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
+12. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+13. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
     path's share kernels) against their plain versions, ``torch.equal``,
     at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
     and at a ragged D = 10,001 with ``hi_base`` 192, with times and
     bounds; then ``reconstruct`` and ``shamir_reconstruct`` of the
     largest leaf's shares against their plain versions, timed alike;
-13. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
+14. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
     backend rule picks gloo; ``reduce_scatter`` and ``all_gather`` stage
     through host memory): every mode and scheme of
     ``fl.spmd.secure_aggregate``, each rank's mean bit-identical to the
     others and, in the secure modes, to the same aggregation composed
     from the plain versions on the card; then two train steps of the
     smoke config, with identical parameters on every rank;
-14. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
+15. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
     at full width and depth, a world of one, global batch 8 x seq 128,
     four steps each of ``plain``, ``two_phase`` additive and
     ``two_phase`` Shamir: every step's aggregated gradient, leaf by leaf,
@@ -122,14 +145,14 @@ non-zero without the final result line):
     trainer's own "tok/s" lines count it), then one profiled step split
     into its ``fwd_bwd``, ``secure_aggregate`` and ``adamw_update``
     ranges and one unchecked step with its peak device memory;
-15. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
+16. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
     random weights from seed 0, batch 8 x prompt 2,048 in the config's
     bf16: 24 flash launches per call, wall time and tok/s per call, the
     logits against the same prefill through the plain attention on the
     card (in float32 compute to 1e-3; in bf16 within the distance, as a
     root mean square over the logits, that bf16 compute puts between the
     plain logits and float32's), and one profiled call;
-16. serve: the ``launch.serve`` loop (prefill by decode, then greedy
+17. serve: the ``launch.serve`` loop (prefill by decode, then greedy
     generation) on qwen1.5-0.5b at full size, batch 8, prompt 512,
     gen 128: in float32 compute, every step's logits against the plain
     step on the card fed the same tokens (each with its own bf16 cache)
@@ -137,34 +160,34 @@ non-zero without the final result line):
     first generated token's logits against the prefill's to 5e-2; then
     in the config's bf16, 24 decode launches per step, ms per step,
     tok/s, peak memory and one profiled step's device busy share;
-17. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
+18. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
     7.27 B parameters, random weights from seed 0), ``make_prefill`` at
     batch 8 x 2,048 in bf16: 64 launches of the selective-scan kernel a
     call, wall time, tok/s, peak memory and one profiled call; the
     logits against the chunked plain path at batch 2 (float32 compute to
     1e-3; bf16 within the distance, as an RMS, that bf16 compute puts
     between the plain logits and float32's);
-18. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
+19. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's logits against the
     prefill's in float32 compute (1e-3), then in bf16 ms per step, tok/s,
     peak memory and one profiled step (the SSM step runs no hand-written
     kernel, as the reference's);
-19. hybrid_prefill: recurrentgemma-9b at full width and depth (38
+20. hybrid_prefill: recurrentgemma-9b at full width and depth (38
     layers, 10,444,984,320 parameters, random weights from seed 0),
     ``make_prefill`` at batch 8 x 2,048 in bf16: 26 ``lru_scan`` and 12
     flash launches a call, wall time, tok/s, peak memory and one
     profiled call; the logits against the plain path (chunked scan,
     plain attention) at batch 2 (float32 compute to 1e-3; bf16 within
     the bf16-vs-float32 RMS);
-20. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
+21. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's float32 logits
     against the prefill's with a float32 cache (1e-3) and with the bf16
     cache (5e-2), then in bf16 12 decode launches a step, ms per step,
     tok/s, peak memory and one profiled step;
-21. ring: the smoke config (window 8) served through the kernels for 24
+22. ring: the smoke config (window 8) served through the kernels for 24
     steps, so its 8-slot ring wraps twice, each step's float32 logits
     against the plain step fed the same tokens (1e-4);
-22. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+23. summary: a ``{"kernels": [...]}`` line (the attention kernels also
     at D = 256, under ``d256``), then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
@@ -1011,8 +1034,9 @@ def phase_cohort() -> dict:
 
 
 def scenario_battery():
-    """The eight simulation scenarios of the reference's battery
-    (``benchmarks/scenarios.py``), at their own parameters."""
+    """The reference's battery (``benchmarks/scenarios.py``) at its own
+    parameters: the eight simulation scenarios, then the two wire
+    scenarios (n = 8 party worker processes on the card)."""
     from repro_torch.fl.scenarios import (ChurnConfig, DealerConfig,
                                           ScenarioConfig, StragglerConfig)
     # straggler seed 7 puts party 3, the one party outside the seed-0
@@ -1039,43 +1063,531 @@ def scenario_battery():
                        expect_abort=True,
                        dealers=(DealerConfig(party=2, mode="malformed",
                                              round_index=1),)),
+        ScenarioConfig(name="churn_stragglers_wire", backend="wire", n=8,
+                       epochs=3, churn=ChurnConfig(seed=3),
+                       straggler=straggler),
+        ScenarioConfig(name="poisoned_dealer_wire", backend="wire", n=8,
+                       epochs=3, norm_bound=8.0,
+                       dealers=(DealerConfig(party=3, mode="scale",
+                                             round_index=1),)),
     )
 
 
 def phase_scenarios() -> dict:
     """The adversarial scenario battery through ``run_scenario`` on the
-    card (the port's seeded init).  Returns the launches per kernel."""
+    card (the port's seeded init).  Returns the launches per kernel: the
+    main process's, and a wire scenario's workers' from their logs."""
+    import dataclasses
+    import tempfile
     from repro_torch.fl.scenarios import run_scenario
     from repro_torch.kernels import dispatch
-    dispatch.reset_launches()
-    for scn in scenario_battery():
-        rec = run_scenario(scn, device="cuda")
-        if scn.expect_abort:
-            require(rec["aborted"] and rec["error"].startswith(
-                "ValueError: dealer share verification failed"),
-                f"{scn.name}: expected the verify's ValueError, got "
-                f"{rec['error']!r}")
+    launches: dict[str, int] = {}
+
+    def add(key, count):
+        launches[key] = launches.get(key, 0) + count
+
+    with tempfile.TemporaryDirectory(dir=dispatch.BUILD_ROOT) as root:
+        for scn in scenario_battery():
+            log_dir = None
+            if scn.backend == "wire":
+                log_dir = str(Path(root) / scn.name)
+                scn = dataclasses.replace(scn, wire_kwargs={
+                    **(scn.wire_kwargs or {}), "log_dir": log_dir})
+            dispatch.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rec = run_scenario(scn, device="cuda")
+            except BaseException:
+                if log_dir is not None:
+                    _dump_worker_logs(log_dir)
+                raise
+            # the record's wall_s is run_fedavg's rounds; run_s adds the
+            # set-up (the wire's worker spawns)
+            run_s = time.perf_counter() - t0
+            for key, count in dispatch.launches.items():
+                add(key, count)
+            if scn.expect_abort:
+                require(rec["aborted"] and rec["error"].startswith(
+                    "ValueError: dealer share verification failed"),
+                    f"{scn.name}: expected the verify's ValueError, got "
+                    f"{rec['error']!r}")
+            else:
+                require(rec["counters_match"],
+                        f"{scn.name}: counters {rec['counters']} differ "
+                        f"from the mirror {rec['counters_expected']}")
+                require(rec["final_accuracy"] > 0.5,
+                        f"{scn.name}: final accuracy "
+                        f"{rec['final_accuracy']}")
+            if scn.dealers and not scn.expect_abort:
+                require(rec["banned"] == [3], f"{scn.name}: banned "
+                        f"{rec['banned']}, the poisoned dealer is 3")
+            if scn.honest_twin:
+                require(rec.get("honest_accuracy", 0.0) > 0.5,
+                        f"{scn.name}: the honest twin did not run or "
+                        f"scored {rec.get('honest_accuracy')}")
+            row = {"phase": "scenario", "name": rec["name"],
+                   "wall_s": rec["wall_s"], "run_s": run_s,
+                   "final_accuracy": rec.get("final_accuracy"),
+                   "final_loss": rec.get("final_loss"),
+                   "honest_accuracy": rec.get("honest_accuracy"),
+                   "banned": rec.get("banned"), "aborted": rec["aborted"],
+                   "error": rec["error"],
+                   "counters_match": rec.get("counters_match")}
+            if log_dir is not None:
+                row.update(_check_wire_scenario(scn, rec, log_dir, add))
+            emit(row)
+    return {k: v for k, v in launches.items() if v}
+
+
+def _check_wire_scenario(scn, rec: dict, log_dir: str, add) -> dict:
+    """A wire scenario against the same scenario through the simulation
+    on the card (the wire is bit-identical to it, so a worker that died
+    and was dropped shows as a different loss), and against its workers'
+    records: every party's record of every round on the card, one share
+    launch a chunk in every party of the round and none elsewhere, one
+    reconstruct launch a round."""
+    import dataclasses
+    from repro_torch.fl.scenarios import run_scenario
+    sim = run_scenario(dataclasses.replace(scn, backend="sim",
+                                           wire_kwargs=None), device="cuda")
+    for key in ("outcomes", "banned", "final_loss", "final_accuracy",
+                "counters"):
+        require(rec[key] == sim[key], f"{scn.name}: {key} {rec[key]} on "
+                 f"the wire, {sim[key]} in the simulation on the card")
+    records = _worker_records(log_dir, scn.n)
+    chunks = -(-rec["model_elems"] // (1 << 20))
+    share_k, rec_k = SHARE_KEYS[scn.scheme], RECONSTRUCT_KEYS[scn.scheme]
+    live_rounds = []
+    for r, out in enumerate(rec["outcomes"]):
+        # a blamed party was live in its round: blame takes it out after
+        live = (set(out["alive"]) | set(out["blamed"])
+                | set(out["blamed_dealers"]))
+        shares = _wire_launches(records, range(scn.n), r, share_k)
+        require(shares == {p: chunks if p in live else 0
+                           for p in range(scn.n)},
+                f"{scn.name} round {r}: share launches {shares}, {chunks} "
+                f"in each of {sorted(live)} expected")
+        recs = _wire_launches(records, range(scn.n), r, rec_k)
+        require(sum(recs.values()) == 1,
+                f"{scn.name} round {r}: reconstruct launches {recs}")
+        add(share_k, sum(shares.values()))
+        add(rec_k, sum(recs.values()))
+        live_rounds.append(sorted(live))
+    return {"equal_to_sim": True, "live_parties": live_rounds,
+            "worker_share_launches": sum(
+                len(p) for p in live_rounds) * chunks}
+
+
+#: the wire phase's plain rounds: 8 party processes on the one card,
+#: m = 3, b = 10, s = 2,500,000, so the default chunk of 2^20 elements
+#: gives three chunks, the last a ragged 402,848
+WIRE_SHAPE = dict(n=8, m=3, b=10, s=2_500_000, seed=0, rounds=2)
+WIRE_CASES = [("additive", "hub"), ("additive", "tree"),
+              ("shamir", "hub"), ("shamir", "tree")]
+#: the VSS round (tree relay, per-round re-election, a flip tamperer in
+#: round 1) and the cohort round (registry 8, cohort 6, hub)
+WIRE_VSS_S = 10_000
+#: at seed 1 round 1's committee (0, 2, 3) has a non-final member, 0,
+#: whose region ([0, 5, 6]) holds no other member: a condemned region
+#: that held one would take that member's data out and leave the round
+#: below its threshold (the reference's quorum rule)
+WIRE_VSS_SEED = 1
+WIRE_COHORT = 6
+SHARE_KEYS = {"additive": "repro_share_gen_batch",
+              "shamir": "repro_shamir_share_batch"}
+RECONSTRUCT_KEYS = {"additive": "repro_reconstruct",
+                    "shamir": "repro_shamir_reconstruct"}
+
+
+def _worker_records(log_dir: str, n: int) -> dict:
+    """``{(party, round): record}`` from the workers' per-round JSON
+    lines (``repro_torch.net.party`` writes one to its log a round)."""
+    out = {}
+    for pid in range(n):
+        path = Path(log_dir) / f"party-{pid}.log"
+        for line in path.read_text().splitlines() if path.exists() else ():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                out[(rec["party"], rec["round"])] = rec
+    return out
+
+
+def _dump_worker_logs(log_dir: str) -> None:
+    """The tail of every worker log, for a wire phase that failed."""
+    for path in sorted(Path(log_dir).glob("party-*")):
+        lines = path.read_text(errors="replace").splitlines()[-15:]
+        print(f"--- {path.name}", *lines, sep="\n", file=sys.stderr)
+
+
+def _wire_launches(records: dict, parties, rnd: int, kind: str) -> dict:
+    """Per-party launches of kernel ``kind`` in round ``rnd``, every
+    record on the card."""
+    import torch
+    card = torch.cuda.get_device_name(0)
+    got = {}
+    for pid in parties:
+        rec = records.get((pid, rnd))
+        require(rec is not None, f"party {pid} wrote no record of round "
+                f"{rnd}")
+        require(rec["device"] == card,
+                f"party {pid} ran on {rec['device']!r}, not the card")
+        got[pid] = rec["launches"].get(kind, 0)
+    return got
+
+
+def _wire_round_bytes(p, tr, relay: str, committee, rounds: int):
+    """The coordinator's data bytes (in, out) after ``rounds`` honest
+    rounds of one election: each round's closed form (under the tree,
+    at that round's region sizes), the election's votes counted once."""
+    from repro_torch.core import costmodel
+    from repro_torch.fl.cohort import assign_home
+    sub = tr.coordinator.election_rounds
+    votes = (sub * 2 * p.n * (p.n - 1)
+             * costmodel.message_wire_bytes(p.b, tr.cfg.chunk_elems))
+    total = [votes, votes]
+    for r in range(rounds):
+        sizes = None
+        if relay == "tree":
+            home = assign_home(range(p.n), committee, tr.cfg.seed, r,
+                               device="cpu")
+            sizes = [sum(1 for h in home.values() if h == w)
+                     for w in committee]
+        one = costmodel.coordinator_data_bytes(
+            p, relay=relay, subrounds=sub, chunk_elems=tr.cfg.chunk_elems,
+            region_sizes=sizes)
+        total = [t + x - votes for t, x in zip(total, one)]
+    return tuple(total)
+
+
+def phase_wire() -> dict:
+    """The wire transport on the card: a coordinator on the host and one
+    party worker process per party, spawned with ``--device cuda``.
+    Returns the workers' launches per kernel (from their logs)."""
+    import tempfile
+    import torch
+    from repro_torch.core import costmodel
+    from repro_torch.fl import make_transport
+    from repro_torch.fl.faults import RoundOutcome
+    from repro_torch.kernels import dispatch
+    w = WIRE_SHAPE
+    n, m, b, s, seed, rounds = (w["n"], w["m"], w["b"], w["s"], w["seed"],
+                                w["rounds"])
+    chunks = -(-s // (1 << 20))
+    flats = torch.from_numpy(
+        (np.random.RandomState(5).randn(n, s) * 0.1).astype(np.float32))
+    ref_mean = flats.double().mean(0)
+    flats_card = flats.cuda()
+    launches: dict[str, int] = {}
+
+    def add(key, count):
+        launches[key] = launches.get(key, 0) + count
+
+    with tempfile.TemporaryDirectory(dir=dispatch.BUILD_ROOT) as root:
+        log_dir = root
+        try:
+            for scheme, relay in WIRE_CASES:
+                log_dir = str(Path(root) / f"{scheme}-{relay}")
+                sim = make_transport("two_phase", n, m=m, b=b, seed=seed,
+                                     scheme=scheme, device="cuda")
+                sim.elect()
+                with make_transport(
+                        "two_phase", n, backend="wire", m=m, b=b,
+                        seed=seed, scheme=scheme, relay=relay,
+                        warmup=True, device="cuda",
+                        log_dir=log_dir) as tr:
+                    rows, means = [], []
+                    com = tr.elect()
+                    require(com == sim.committee,
+                            f"wire committee {com} vs sim {sim.committee}")
+                    for r in range(rounds):
+                        bytes0 = (tr.coordinator.data_bytes_in
+                                  + tr.coordinator.data_bytes_out)
+                        mean = tr.aggregate(flats, round_index=r)
+                        torch.cuda.synchronize()
+                        want = sim.aggregate(flats_card, round_index=r)
+                        require(mean.is_cuda and torch.equal(
+                            mean.view(torch.int32), want.view(torch.int32)),
+                            f"wire {scheme}/{relay} round {r}: mean differs "
+                            "from the sim's on the card")
+                        means.append(mean)
+                        fp = tr.cfg.fp()
+                        err = float((mean.double().cpu() - ref_mean)
+                                    .abs().max())
+                        tol = (4 * 0.5 / fp.scale / math.sqrt(n)
+                               + 2.0 ** -23 * float(ref_mean.abs().max()))
+                        require(err <= tol, f"wire {scheme}/{relay}: mean "
+                                f"error {err} above {tol}")
+                        require(tr.last_outcome == RoundOutcome(
+                            alive=set(range(n)), dropped=set(),
+                            straggled=set()),
+                            f"wire {scheme}/{relay} round {r}: outcome "
+                            f"{tr.last_outcome}")
+                        p = costmodel.CostParams(n=n, e=r + 1, s=s, m=m,
+                                                 b=b)
+                        sub = tr.coordinator.election_rounds
+                        st1 = tr.net.stats("phase1")
+                        require((st1.msg_num, st1.msg_size) == (
+                            sub * costmodel.phase1_msg_num(p),
+                            sub * costmodel.phase1_msg_size(p)),
+                            f"wire {scheme}/{relay}: phase 1 {st1}")
+                        p2 = [tr.net.stats(ph) for ph in
+                              ("phase2_upload", "phase2_exchange",
+                               "phase2_broadcast")]
+                        require((sum(x.msg_num for x in p2),
+                                 sum(x.msg_size for x in p2)) == (
+                            costmodel.phase2_msg_num(p),
+                            costmodel.phase2_msg_size(p)),
+                            f"wire {scheme}/{relay}: phase 2 counters")
+                        for ph in ("phase1", "phase2_upload",
+                                   "phase2_exchange", "phase2_broadcast"):
+                            require(tr.net.stats(ph) == sim.net.stats(ph),
+                                    f"wire {scheme}/{relay}: {ph} "
+                                    f"{tr.net.stats(ph)} vs the sim's "
+                                    f"{sim.net.stats(ph)}")
+                        co = tr.coordinator
+                        want_bytes = _wire_round_bytes(p, tr, relay, com,
+                                                       r + 1)
+                        require((co.data_bytes_in, co.data_bytes_out)
+                                == want_bytes,
+                                f"wire {scheme}/{relay}: coordinator bytes "
+                                f"{(co.data_bytes_in, co.data_bytes_out)} "
+                                f"vs {want_bytes}")
+                        t2 = co.stage_times[("phase2", r)]
+                        tw = co.stage_times.get(("warmup", r), (0.0, 0.0))
+                        wall = (t2[1] - t2[0]) - (tw[1] - tw[0])
+                        moved = (co.data_bytes_in + co.data_bytes_out
+                                 - bytes0)
+                        t1 = co.stage_times[("phase1", 0)]
+                        rows.append({"phase": "wire", "scheme": scheme,
+                              "relay": relay, "n": n, "m": m, "s": s,
+                              "round": r, "chunks": chunks,
+                              "committee": list(com),
+                              "startup_s": tr.startup_s,
+                              "phase1_wall_s": t1[1] - t1[0],
+                              "warmup_s": tw[1] - tw[0],
+                              "phase2_wall_s": wall,
+                              "coordinator_mb": moved / 1e6,
+                              "coordinator_mb_per_s": moved / 1e6 / wall,
+                              "data_bytes_in": co.data_bytes_in,
+                              "data_bytes_out": co.data_bytes_out,
+                              "mean_max_err": err, "mean_tol": tol,
+                              "equal_to_sim": True})
+                # a worker writes its round's record after the broadcast,
+                # so the records are read once the workers have exited
+                records = _worker_records(log_dir, n)
+                for row in rows:
+                    r = row["round"]
+                    shares = _wire_launches(records, range(n), r,
+                                            SHARE_KEYS[scheme])
+                    recs = _wire_launches(records, range(n), r,
+                                          RECONSTRUCT_KEYS[scheme])
+                    require(set(shares.values()) == {chunks},
+                            f"wire {scheme}/{relay}: share launches "
+                            f"{shares}, {chunks} a party expected")
+                    require(recs == {pid: int(pid == com[-1])
+                                     for pid in range(n)},
+                            f"wire {scheme}/{relay}: reconstruct "
+                            f"launches {recs}, one on {com[-1]}")
+                    add(SHARE_KEYS[scheme], sum(shares.values()))
+                    add(RECONSTRUCT_KEYS[scheme], sum(recs.values()))
+                    # the slowest worker's host seconds a step: INPUT
+                    # received, shares made and copied to the host, the
+                    # upload sent, the member's duties, the whole round
+                    steps = {k: max(records[(pid, r)].get(k, 0.0)
+                                    for pid in range(n))
+                             for k in ("input_s", "share_s", "upload_s",
+                                       "member_s", "round_s")}
+                    emit({**row, "share_launches": shares,
+                          "reconstruct_launches": recs,
+                          "worker_max_s": steps})
+                if relay == "hub":
+                    # the tree gives the kernels the same shapes
+                    _wire_kernel_checks(sim.agg, flats_card, means, seed)
+                del sim, means
+            log_dir = str(Path(root) / "vss")
+            _phase_wire_vss(log_dir, flats[:, :WIRE_VSS_S].contiguous(),
+                            add)
+            log_dir = str(Path(root) / "cohort")
+            _phase_wire_cohort(log_dir, flats, flats_card)
+        except BaseException:
+            _dump_worker_logs(log_dir)
+            raise
+    del flats_card
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wire_kernel_checks(agg, flats_card, means, seed: int) -> None:
+    """The share and reconstruct kernels at the wire's own shapes, held
+    bit for bit against their plain versions on the same inputs: every
+    party's chunks ``[1, 2^20]`` (the last the ragged tail) at their
+    counter offsets with every round's keys, as the workers call them,
+    then the final member's reconstruction of the member sums
+    ``[m, s]``, whose decoded mean must be the wire round's."""
+    import torch
+    from repro_torch.core.field import MERSENNE_P, U32_MASK, to_i32
+    from repro_torch.kernels.reconstruct import reconstruct, reconstruct_ref
+    from repro_torch.kernels.shamir import (shamir_reconstruct,
+                                            shamir_reconstruct_ref,
+                                            shamir_share_batch,
+                                            shamir_share_batch_ref)
+    from repro_torch.kernels.share_gen import (share_gen_batch,
+                                               share_gen_batch_ref)
+    n, s = flats_card.shape
+    chunk, m, fp = 1 << 20, agg.m, agg.fp
+    additive = agg.scheme == "additive"
+    tails = []
+    for r, mean in enumerate(means):
+        sums = torch.zeros(m, s, dtype=torch.int64, device="cuda")
+        for pid in range(n):
+            keys64 = agg.party_key_words(seed, [pid], r)
+            keys = to_i32(keys64).contiguous()
+            for e_lo in range(0, s, chunk):
+                x = flats_card[pid:pid + 1, e_lo:e_lo + chunk]
+                if additive:
+                    got = share_gen_batch(x, m, keys, fp, e_lo // 4)
+                    want = share_gen_batch_ref(x, m, keys64, fp, e_lo // 4)
+                else:
+                    got = shamir_share_batch(x, m, keys, fp,
+                                             agg.shamir_degree, e_lo // 4)
+                    want = shamir_share_batch_ref(
+                        x, m, keys64, fp, agg.shamir_degree, e_lo // 4)
+                require(torch.equal(_bits(got), to_i32(want)),
+                        f"wire shapes: {agg.scheme} shares of party {pid} "
+                        f"round {r} at elem_base {e_lo} differ from the "
+                        "plain version")
+                sums[:, e_lo:e_lo + x.shape[1]] += want[0] & U32_MASK
+                if r == 0 and pid == 0:
+                    tails.append(int(x.shape[1]))
+        words = to_i32(sums & U32_MASK if additive else sums % MERSENNE_P)
+        if additive:
+            got, want = (reconstruct(words, 1, fp),
+                         reconstruct_ref(words, 1, fp))
         else:
-            require(rec["counters_match"],
-                    f"{scn.name}: counters {rec['counters']} differ from "
-                    f"the mirror {rec['counters_expected']}")
-            require(rec["final_accuracy"] > 0.5,
-                    f"{scn.name}: final accuracy {rec['final_accuracy']}")
-        if scn.dealers and not scn.expect_abort:
-            require(rec["banned"] == [3], f"{scn.name}: banned "
-                    f"{rec['banned']}, the poisoned dealer is 3")
-            require(rec.get("honest_accuracy", 0.0) > 0.5,
-                    f"{scn.name}: the honest twin did not run or scored "
-                    f"{rec.get('honest_accuracy')}")
-        emit({"phase": "scenario", "name": rec["name"],
-              "wall_s": rec["wall_s"],
-              "final_accuracy": rec.get("final_accuracy"),
-              "final_loss": rec.get("final_loss"),
-              "honest_accuracy": rec.get("honest_accuracy"),
-              "banned": rec.get("banned"), "aborted": rec["aborted"],
-              "error": rec["error"],
-              "counters_match": rec.get("counters_match")})
-    return {k: v for k, v in dispatch.launches.items() if v}
+            got, want = (shamir_reconstruct(words, 1, fp),
+                         shamir_reconstruct_ref(words, 1, fp))
+        require(torch.equal(_bits(got), _bits(want)),
+                f"wire shapes: {agg.scheme} reconstruction of round {r} "
+                "differs from the plain version")
+        require(torch.equal(_bits(agg.reconstruct_mean(words, n)),
+                            _bits(mean)),
+                f"wire shapes: {agg.scheme} round {r}: the mean of the "
+                "checked shares is not the wire round's")
+        del sums, words
+    emit({"phase": "wire_kernels", "scheme": agg.scheme, "parties": n,
+          "rounds": len(means), "chunks": tails, "s": s, "m": m,
+          "equal": True, "max_abs_err": 0, "mean_equal_to_wire": True})
+
+
+def _phase_wire_vss(log_dir: str, flats, add) -> None:
+    """Shamir VSS at degree 1 under the tree relay with per-round
+    re-election: round 0 honest; in round 1 a non-final member whose
+    region holds no other member flips its outgoing regional sums, every
+    receiver's
+    check blames it, the quorum condemns it, its region's dealers leave
+    the round (the sim's round without them and with the member dropped,
+    bit for bit); round 2 re-elects without it and equals the honest
+    mean."""
+    import torch
+    from repro_torch.core import committee as committee_mod
+    from repro_torch.fl import make_transport
+    from repro_torch.fl.cohort import assign_home
+    n, m, b = (WIRE_SHAPE[k] for k in ("n", "m", "b"))
+    seed = WIRE_VSS_SEED
+    kw = dict(m=m, b=b, seed=seed, scheme="shamir", shamir_degree=1,
+              vss=True, reelect_each_round=True)
+    com1 = committee_mod.elect(n, m, b, seed + 1, device="cpu").committee
+    home = assign_home(range(n), com1, seed, 1, device="cpu")
+    regions = {w: sorted(p for p, h in home.items() if h == w)
+               for w in com1}
+    victim = next((w for w in com1[:-1] if regions[w]
+                   and not set(regions[w]) & (set(com1) - {w})), None)
+    require(victim is not None, f"no member of {com1} has a region "
+            f"{regions} free of the other members")
+    region = regions[victim]
+    survivors = [p for p in range(n) if p not in region]
+    card = flats.cuda()
+    honest = make_transport("two_phase", n, device="cuda", **kw)
+    honest_means = [honest.aggregate(card, round_index=r) for r in range(3)]
+    sim = make_transport("two_phase", n, device="cuda", **kw)
+    sim.aggregate(card, round_index=0)
+    degraded = sim.aggregate(card[survivors], party_ids=survivors,
+                             round_index=1, committee_dropout=[victim])
+    with make_transport(
+            "two_phase", n, backend="wire", relay="tree", warmup=True,
+            device="cuda", log_dir=log_dir,
+            party_extra_args={victim: ["--tamper", "flip",
+                                       "--tamper-round", "1"]},
+            **kw) as tr:
+        for r, want in enumerate((honest_means[0], degraded,
+                                  honest_means[2])):
+            mean = tr.aggregate(flats, round_index=r)
+            require(torch.equal(mean.view(torch.int32),
+                                want.view(torch.int32)),
+                    f"wire vss round {r}: mean differs from the sim's")
+            if r == 1:
+                out = tr.last_outcome
+                blamed = sorted(out.blamed)
+                require(out.blamed == {victim}
+                        and out.dropped == set(region) - {victim}
+                        and out.alive == set(survivors)
+                        and tr.evicted == {victim},
+                        f"wire vss: outcome {out}, evicted {tr.evicted}, "
+                        f"victim {victim}, region {region}")
+            if r == 2:
+                require(victim not in tr.committee,
+                        f"wire vss: {victim} re-elected into "
+                        f"{tr.committee}")
+        evicted = sorted(tr.evicted)
+        committee2 = list(tr.committee)
+    records = _worker_records(log_dir, n)
+    verify = {}
+    for r in range(3):
+        got = _wire_launches(records, range(n), r,
+                             "repro_verify_shares")
+        verify[r] = got
+        add("repro_verify_shares", sum(got.values()))
+        add("repro_shamir_share_batch", sum(_wire_launches(
+            records, range(n), r, "repro_shamir_share_batch").values()))
+        add("repro_shamir_reconstruct", sum(_wire_launches(
+            records, range(n), r, "repro_shamir_reconstruct").values()))
+    require(all(verify[1][w] > 0 for w in com1),
+            f"wire vss: verify_shares launches {verify[1]} in round 1")
+    emit({"phase": "wire_vss", "n": n, "s": int(flats.shape[1]),
+          "relay": "tree", "degree": 1, "victim": victim,
+          "region": region, "blamed": blamed,
+          "evicted": evicted, "committee_round2": committee2,
+          "verify_launches": {str(r): v for r, v in verify.items()},
+          "means_equal_to_sim": True})
+
+
+def _phase_wire_cohort(log_dir: str, flats, flats_card) -> None:
+    """One cohort round, registry 8, cohort 6, hub: the cohort equals
+    ``sample_cohort`` on the CPU and the mean the sim's on the card."""
+    import torch
+    from repro_torch.fl import make_transport
+    from repro_torch.fl.cohort import sample_cohort
+    n, m, b, seed = (WIRE_SHAPE[k] for k in ("n", "m", "b", "seed"))
+    sim = make_transport("two_phase", n, m=m, b=b, seed=seed,
+                         cohort=WIRE_COHORT, device="cuda")
+    sim.elect(0)
+    cids = list(sim.cohort_ids)
+    want = sim.aggregate(flats_card[cids], party_ids=cids, round_index=0)
+    with make_transport("two_phase", n, backend="wire", m=m, b=b,
+                        seed=seed, cohort=WIRE_COHORT, warmup=True,
+                        device="cuda", log_dir=log_dir) as tr:
+        tr.elect(0)
+        drawn = sample_cohort(range(n), WIRE_COHORT, seed, 0, device="cpu")
+        require(tr.cohort_ids == drawn == tuple(cids),
+                f"wire cohort {tr.cohort_ids} vs sample_cohort {drawn}")
+        mean = tr.aggregate(flats[cids], party_ids=cids, round_index=0)
+        require(torch.equal(mean.view(torch.int32), want.view(torch.int32)),
+                "wire cohort round: mean differs from the sim's")
+        require(tr.last_outcome.alive == set(cids)
+                and not tr.last_outcome.dropped,
+                f"wire cohort round: outcome {tr.last_outcome}")
+        emit({"phase": "wire_cohort", "registry": n, "cohort": cids,
+              "committee": list(tr.committee), "equal_to_sim": True})
 
 
 def phase_streaming() -> None:
@@ -2933,7 +3445,8 @@ def main(argv=None) -> int:
         (flats[:1024] * 0.1).contiguous())
     del flats, vss_flats
     torch.cuda.empty_cache()
-    for phase in (phase_cohort, phase_scenarios):
+    # the wire's launches are the party workers', read from their logs
+    for phase in (phase_cohort, phase_scenarios, phase_wire):
         for key, count in phase().items():
             launches[key] = launches.get(key, 0) + count
     phase_streaming()

@@ -19,9 +19,10 @@ Each takes ``device=`` (the card unless ``"cpu"`` is asked for).  The
 spec has the reference's fields, in its order and with its defaults, so
 a JSON file written by either package loads in the other
 (:meth:`to_json` / :meth:`from_json`, which rejects unknown keys with a
-did-you-mean hint).  Fields of later slices stay data: ``backend="wire"``
-and ``compress_topk`` load, and raise ``NotImplementedError`` (ROADMAP
-queue 1, items 8 and 6) where an entry point would use them.
+did-you-mean hint).  ``backend="wire"`` deploys the spec over party
+worker processes (``repro_torch.net``); ``compress_topk``, a later
+slice, loads and raises ``NotImplementedError`` (ROADMAP queue 1, item
+6) where an entry point would use it.
 ``kernel_backend`` stays a field for that compatibility; the port
 dispatches by device, so any value but ``None`` raises ``ValueError``.
 """
@@ -33,7 +34,7 @@ import difflib
 
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.fixed_point import FixedPointConfig
-from repro_torch.fl.transport import check_kernel_backend, not_ported
+from repro_torch.fl.transport import check_kernel_backend, reject_later
 
 __all__ = ["ExperimentSpec", "make_transport"]
 
@@ -187,13 +188,31 @@ class ExperimentSpec:
             dealer_tamper=self.dealer_tamper, cohort=self.cohort)
 
     def wire_config(self):
-        """The wire's ``WireConfig`` (a later slice of the port)."""
-        raise not_ported("ExperimentSpec.wire_config()", "backend")
+        """The ``net.config.WireConfig`` a WELCOME frame would carry."""
+        from repro_torch.net.config import WireConfig
+        return WireConfig.from_aggregation_kwargs(
+            self.n, m=self.m, b=self.vote_batch, seed=self.seed,
+            scheme=self.scheme, fp=self.fp(),
+            shamir_degree=self.shamir_degree,
+            chunk_elems=self.chunk_elems, vss=self.vss,
+            reelect_each_round=self.reelect_each_round,
+            norm_bound=self.norm_bound, cohort=self.cohort,
+            pipeline=self.pipeline, lease_s=self.lease_s,
+            relay=self.relay)
 
     def wire_transport_kwargs(self) -> dict:
-        """The wire transport's keyword arguments (a later slice)."""
-        raise not_ported("ExperimentSpec.wire_transport_kwargs()",
-                         "backend")
+        """Keyword arguments of ``repro_torch.net.WireTransport`` (the
+        device apart; ``launch.serve_fl`` deploys a spec with them)."""
+        return dict(
+            n=self.n, m=self.m, scheme=self.scheme, seed=self.seed,
+            b=self.vote_batch, fp=self.fp(),
+            shamir_degree=self.shamir_degree,
+            chunk_elems=self.chunk_elems, vss=self.vss,
+            reelect_each_round=self.reelect_each_round,
+            norm_bound=self.norm_bound, cohort=self.cohort,
+            pipeline=self.pipeline, lease_s=self.lease_s,
+            relay=self.relay, dealer_tamper=self.dealer_tamper,
+            **(self.wire_kwargs or {}))
 
     def scenario_config(self):
         """The spec's scenario with the shared fields (n, m, scheme,
@@ -262,9 +281,10 @@ def _scenario_from_json(obj: dict):
 def make_transport(spec: ExperimentSpec, *, net=None, device="cuda",
                    **overrides):
     """Transport factory over a spec on ``device``: the counting
-    simulation transport of ``spec.protocol`` with the spec's fields
-    (``overrides`` pass extra transport keywords through).  The wire
-    backend raises ``NotImplementedError``."""
+    simulation transport of ``spec.protocol``, or the wire transport
+    (``backend="wire"``, its workers on ``device``), with the spec's
+    fields (``overrides`` pass extra transport keywords through, e.g.
+    ``start=``, ``log_dir=`` on the wire)."""
     if not isinstance(spec, ExperimentSpec):
         raise TypeError(
             f"make_transport wants an ExperimentSpec, got "
@@ -272,8 +292,16 @@ def make_transport(spec: ExperimentSpec, *, net=None, device="cuda",
             "fl.transport.make_transport for raw kwargs)")
     from repro_torch.fl.transport import make_transport as _factory
     if spec.backend == "wire":
-        raise not_ported("make_transport(spec) with backend='wire'",
-                         "backend")
+        # top-k is a later slice: refuse it before a port is bound or a
+        # worker spawned (the wire's kwargs have no compression field)
+        reject_later(compress_topk=spec.compress_topk)
+        kw = spec.wire_transport_kwargs()
+        n = kw.pop("n")
+        if net is not None:
+            kw["net"] = net
+        kw.update(overrides)
+        return _factory(spec.protocol, n, backend="wire", device=device,
+                        **kw)
     kw = dict(m=spec.m, b=spec.vote_batch, scheme=spec.scheme,
               seed=spec.seed, fp=spec.fp(),
               shamir_degree=spec.shamir_degree,

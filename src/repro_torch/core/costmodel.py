@@ -4,8 +4,9 @@ A copy of the closed forms in ``repro/core/costmodel.py`` (the port
 imports nothing of the reference).  ``Msg_Num`` counts point-to-point
 messages; ``Msg_Size`` is in model elements (``s``) or vote elements
 (``b``).  The counting transports of ``fl.transport`` must equal these
-exactly.  The top-k and per-link coordinator forms come with the
-slices that port those features (ROADMAP queue 1, items 6 and 8).
+exactly; the wire's coordinator must equal the per-link byte forms at
+the end.  The top-k forms come with the slice that ports top-k
+compression (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -247,3 +248,158 @@ def summary_cohort(p: CostParams, c: int) -> dict:
         "twophase_cohort_msg_size": twophase_cohort_msg_size(p, c),
         "cohort_reduction_factor": cohort_reduction_factor(p, c),
     }
+
+
+# -- Per-link coordinator byte forms (wire topologies; DESIGN.md §13) --------
+#
+# Eqs. 1-8 count *logical* messages and are topology-independent: the
+# committee-sharded relay tree moves traffic between links without
+# changing a single counter.  What the topology *does* change is which
+# frames cross the coordinator's own sockets.  These forms price that,
+# in real bytes, for one honest round with every party live and
+# included (and, under the tree, every member's region non-empty —
+# ``fl.cohort.assign_home`` decides that; the bench asserts it).  A
+# frame is ``FRAME_OVERHEAD_BYTES`` of envelope (4-byte length prefix +
+# 32-byte v2 header) plus 4 bytes per element (uint32 shares and
+# float32 means alike), and a logical message of ``E`` elements ships
+# in ``ceil(E / chunk_elems)`` frames.  Only frames carrying a counted
+# data phase (``Phase.COUNTER_NAMES``) are priced — JSON control
+# chatter is serialization-dependent and deliberately outside — which
+# is exactly what ``Coordinator.data_bytes_in/out`` measure, so the
+# cross-check is equality, not approximation.
+#
+# Per-round data legs crossing the coordinator (c uploaders, committee
+# m, model s, votes b, ``subrounds`` election subrounds):
+#
+#   ingress, hub : votes 2·c·(c−1)·subrounds × b │ uploads c·m × s
+#                  │ exchange (m−1) × s │ result 1 × s
+#   ingress, tree: votes (same) │ region sums m·(m−1) × s
+#                  │ exchange (m−1) × s │ result 1 × s
+#   egress,  hub : votes (same) │ input c × s │ uploads c·m × s
+#                  │ exchange (m−1) × s │ broadcast n × s
+#   egress,  tree: votes (same) │ input c × s │ region sums m·(m−1) × s
+#                  │ exchange (m−1) × s │ broadcast n × s
+#
+# Under VSS the hub adds commitment relays (c·m × (deg+1)·2·s, in and
+# out) and the tree adds regional commitments: every home member with a
+# non-empty region broadcasts its regional aggregate commitments to
+# every *other* live member — m·(m−1) × (deg+1)·2·s, in and out — so
+# each receiver can bind the incoming REGION_SUMs to the sender's
+# dealers before folding them (the commitment-bound verification rule,
+# DESIGN.md §13).  The headline: tree coordinator ingress for Phase II
+# drops from O(c·m·s) to O(m²·s) — *independent of c* (the uploads
+# never touch the hub), at the price of O(m·s) extra bandwidth at each
+# home member.
+#
+# With the norm-bound audit on (``audit=True``; needs ``region_sizes``
+# — the per-member region cardinalities, final member last, because
+# the escrow legs are region-size-dependent):
+#
+# * REGION_COMMIT carries the *per-dealer concatenation* instead of
+#   the aggregate — (m−1) messages of |region_h|·(deg+1)·2·s per
+#   sender h (receivers still fold the aggregate locally; the final
+#   member needs dealer granularity to re-aggregate over honest
+#   dealers post-blame);
+# * each non-final home member h with a non-empty region escrows its
+#   per-dealer share rows to the final member — one DEALER_ROWS
+#   message of |region_h|·m·s elements (all m member evaluation
+#   points; phase2_audit phase), in and out.
+#
+# The hub audit leg ((m−1) messages of c·s — phase2_audit_*) also
+# crosses the coordinator and is priced under ``audit=True`` there.
+
+FRAME_OVERHEAD_BYTES = 36    # 4-byte length prefix + 32-byte header
+ELEM_BYTES = 4               # uint32 and float32 elements alike
+
+
+def message_frames(elems: int, chunk_elems: int) -> int:
+    """Frames one logical message of ``elems`` elements ships in."""
+    if elems < 1:
+        raise ValueError(f"elems={elems}: zero-element messages are "
+                         "protocol violations on the wire")
+    return -(-elems // chunk_elems)
+
+
+def message_wire_bytes(elems: int, chunk_elems: int) -> int:
+    """Exact bytes of one chunked logical message on the wire."""
+    return (elems * ELEM_BYTES
+            + message_frames(elems, chunk_elems) * FRAME_OVERHEAD_BYTES)
+
+
+def coordinator_round_legs(p: CostParams, *, c: int | None = None,
+                           relay: str = "hub", subrounds: int = 1,
+                           vss: bool = False,
+                           degree: int | None = None,
+                           audit: bool = False,
+                           region_sizes=None) -> dict:
+    """``{"in": [(msg_num, elems), ...], "out": [...]}`` — the data
+    legs crossing the coordinator in one honest round (see the block
+    comment for the leg inventory and its preconditions)."""
+    if relay not in ("hub", "tree"):
+        raise ValueError(f"relay={relay!r} must be 'hub' or 'tree'")
+    if audit and not vss:
+        raise ValueError("audit=True needs vss=True (unverified rows "
+                         "cannot carry a blame decision)")
+    c = p.n if c is None else int(c)
+    votes = (subrounds * 2 * c * (c - 1), p.b)
+    if relay == "hub":
+        fan_in = [(c * p.m, p.s)]
+        if vss:
+            fan_in.append((c * p.m, vss_commit_elems(p, degree)))
+        if audit:
+            fan_in.append((p.m - 1, c * p.s))       # DEALER_ROWS
+    else:
+        if region_sizes is None:
+            if audit:
+                raise ValueError(
+                    "audit=True under relay='tree' needs region_sizes "
+                    "(the escrow legs are region-size-dependent)")
+            # bench precondition: every member's region non-empty
+            fan_in = [(p.m * (p.m - 1), p.s)]
+            if vss:
+                fan_in.append((p.m * (p.m - 1),
+                               vss_commit_elems(p, degree)))
+        else:
+            sizes = [int(x) for x in region_sizes]
+            if len(sizes) != p.m or sum(sizes) != c:
+                raise ValueError(
+                    f"region_sizes={sizes} must have one entry per "
+                    f"member (m={p.m}, final member last) summing to "
+                    f"the uploader count c={c}")
+            fan_in = []
+            for k, size in enumerate(sizes):
+                if size < 1:
+                    continue
+                fan_in.append((p.m - 1, p.s))        # REGION_SUM
+                if vss:
+                    per_msg = (size * vss_commit_elems(p, degree)
+                               if audit
+                               else vss_commit_elems(p, degree))
+                    fan_in.append((p.m - 1, per_msg))  # REGION_COMMIT
+                if audit and k != p.m - 1:
+                    # escrowed per-dealer rows, all m member points
+                    fan_in.append((1, size * p.m * p.s))
+    exchange = (p.m - 1, p.s)
+    legs_in = [votes, *fan_in, exchange, (1, p.s)]          # + RESULT
+    legs_out = [votes, (c, p.s), *fan_in, exchange,         # + INPUT
+                (p.n, p.s)]                                 # + broadcast
+    return {"in": legs_in, "out": legs_out}
+
+
+def coordinator_data_bytes(p: CostParams, *, c: int | None = None,
+                           relay: str = "hub", subrounds: int = 1,
+                           chunk_elems: int, vss: bool = False,
+                           degree: int | None = None,
+                           audit: bool = False,
+                           region_sizes=None) -> tuple[int, int]:
+    """Exact ``(data_bytes_in, data_bytes_out)`` at the coordinator for
+    one honest round — equal (not approximate) to what
+    ``Coordinator.data_bytes_in/out`` measure under the same config."""
+    legs = coordinator_round_legs(p, c=c, relay=relay,
+                                  subrounds=subrounds, vss=vss,
+                                  degree=degree, audit=audit,
+                                  region_sizes=region_sizes)
+    return tuple(
+        sum(num * message_wire_bytes(elems, chunk_elems)
+            for num, elems in legs[key])
+        for key in ("in", "out"))

@@ -24,6 +24,13 @@ _N_ROUNDS = 10
 DERIVE_KEY = (0x243F6A88, 0x85A308D3)
 
 
+def _broadcast(*shapes) -> tuple[int, ...]:
+    """The broadcast of ``shapes``.  numpy's rule, which is torch's:
+    ``torch.broadcast_shapes`` imports sympy on its first call (~1 s),
+    which a party worker would pay in its first election."""
+    return np.broadcast_shapes(*(tuple(sh) for sh in shapes))
+
+
 def philox_4x32_tuple(x0, x1, x2, x3, key0, key1):
     """Four counter-word tensors in, four random-word tensors out.
 
@@ -79,7 +86,7 @@ def random_bits(n: int, key0, key1, counter_hi=0, counter_base=0,
         y = philox_4x32_tuple(c, zero, hi, zero, k0, k1)
     else:
         y = philox_4x32_tuple(c, hi, zero, zero, k0, k1)
-    y = [w.expand(*torch.broadcast_shapes(k0.shape, c.shape)) for w in y]
+    y = [w.expand(*_broadcast(k0.shape, c.shape)) for w in y]
     return torch.stack(y, dim=-1).flatten(-2)[..., :n]
 
 
@@ -120,7 +127,7 @@ def derive_key(seed, stream):
                   torch.device("cpu"))
     # 0-d host tensors broadcast against tensors of any device
     parts = [p if p.ndim == 0 else p.to(device) for p in parts]
-    shape = torch.broadcast_shapes(*(p.shape for p in parts))
+    shape = _broadcast(*(p.shape for p in parts))
     w0, w1, _, _ = philox_4x32_tuple(*parts, *DERIVE_KEY)
     return w0.expand(shape), w1.expand(shape)
 

@@ -127,6 +127,30 @@ def resolve_outcome(members: set, dropped: set, straggled: set, *,
                         blamed=blamed, blamed_dealers=blamed_dealers)
 
 
+def resolve_region_blames(accusations: dict, live_members) -> set:
+    """Strict-majority quorum over tree-relay REGION_SUM accusations.
+
+    Under ``relay="tree"`` every receiving member verifies each incoming
+    REGION_SUM against the sender's regional Feldman commitments and
+    accuses the *sender* (kind="region" BLAME) on a mismatch.  A member
+    is condemned only when a strict majority of the *other* live members
+    accuse it, so a single malicious receiver cannot frame an honest
+    sender:
+
+        |accusers ∩ (live − {accused})| · 2 > |live| − 1
+
+    Self-accusations are discarded.
+    """
+    live = {int(w) for w in live_members}
+    condemned = set()
+    for accused, accusers in accusations.items():
+        accused = int(accused)
+        voters = {int(a) for a in accusers} & (live - {accused})
+        if len(voters) * 2 > len(live) - 1:
+            condemned.add(accused)
+    return condemned
+
+
 def _enforce_committee_quorum(alive, dropped, straggled, members,
                               latency_s, committee: Iterable[int],
                               threshold: int, resurrect: bool = True):

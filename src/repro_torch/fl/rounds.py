@@ -1,4 +1,4 @@
-"""FedAvg rounds over the simulation backend.
+"""FedAvg rounds over the simulation or the wire backend.
 
 Counterpart of ``repro/fl/rounds.py``: per global epoch every live party
 runs ``local_steps`` local iterations from the shared model, and the
@@ -7,7 +7,9 @@ crash/straggler/elastic handling of ``fl.faults``, and the blame of the
 malicious-secure round: a blamed member or dealer is banned for the rest
 of the run and the committee is re-elected without it.  With ``cohort``
 each round samples its cohort from the current membership and elects
-over it (DESIGN.md §12).  Parameters are
+over it (DESIGN.md §12); a pipelined wire coordinator gets the next
+round's membership so its Phase I overlaps this round's Phase II.
+Parameters are
 dicts of tensors on the run's device; they flatten in sorted-key order,
 as the reference's pytrees do.
 """
@@ -50,7 +52,7 @@ class FedAvgConfig:
     #: vector; the bits are the same either way)
     chunk_elems: int | None = None
     # -- typed aggregation fields -------------------------------------------
-    #: transport backend: "sim" (the wire is a later slice and raises)
+    #: transport backend: "sim" or "wire" (party worker processes)
     backend: str = "sim"
     #: Feldman verifiable secret sharing (Shamir only — DESIGN.md §10)
     vss: bool = False
@@ -66,6 +68,7 @@ class FedAvgConfig:
     #: re-run Alg. 2 every epoch (implied by ``cohort``)
     reelect_each_round: bool = False
     #: extra options of the wire backend (ignored by the simulation)
+    #: — ``log_dir=``, ``deadline_s=``, ``relay=``, ...
     wire_kwargs: dict | None = None
     #: per-round cohort size: ``n_parties`` becomes the registry and
     #: each round runs over a seeded sampled cohort (DESIGN.md §12)
@@ -81,7 +84,10 @@ class FedAvgConfig:
                 not 0.0 <= self.compress_topk <= 1.0:
             raise ValueError(
                 f"compress_topk={self.compress_topk} must be in [0, 1]")
-        reject_later(compress_topk=self.compress_topk, backend=self.backend)
+        if self.backend not in ("sim", "wire"):
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             "expected 'sim' or 'wire'")
+        reject_later(compress_topk=self.compress_topk)
         check_kernel_backend(self.kernel_backend)
 
     def compression(self) -> CompressionConfig | None:
@@ -155,6 +161,18 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
                        chunk_elems=cfg.chunk_elems,
                        compression=cfg.compression(), device=device,
                        **cfg.simulation_kwargs())
+    try:
+        return _run_fedavg(cfg, sim, params, local_train_step,
+                           party_batches, eval_fn, latency_s,
+                           membership_schedule, device)
+    finally:
+        # the wire backend owns party worker processes and a server
+        # thread; the simulation's close is a no-op
+        sim.close()
+
+
+def _run_fedavg(cfg, sim, params, local_train_step, party_batches, eval_fn,
+                latency_s, membership_schedule, device) -> FedAvgResult:
     _, unflatten = flatten(params)
     # cohort mode (read off the transport, so the deprecated agg_kwargs
     # path sets it alike): each round elects over its sampled cohort
@@ -219,7 +237,20 @@ def run_fedavg(cfg: FedAvgConfig, init_params, local_train_step: Callable,
 
         # survivors keep their original ids: party i always masks with
         # its own Philox stream regardless of who else dropped
-        mean, _ = sim.aggregate(cfg.protocol, locals_flat, party_ids=live)
+        agg_kw = {}
+        if cohort_size and epoch < cfg.epochs - 1:
+            tr = sim.transports["two_phase"]
+            if getattr(getattr(tr, "cfg", None), "pipeline", False):
+                # pipelined wire coordinator: round r+1's expected
+                # membership lets Phase I(r+1) overlap this Phase II.
+                # Never on the last round: a speculative election no
+                # round adopts would break the Eq. 3 counters
+                nxt = members
+                if membership_schedule is not None:
+                    nxt = set(membership_schedule(epoch + 1)) - banned
+                agg_kw["pipeline_next_eligible"] = nxt
+        mean, _ = sim.aggregate(cfg.protocol, locals_flat, party_ids=live,
+                                **agg_kw)
 
         if cfg.protocol == "two_phase":
             # fold the transport's blame (tampering members, poisoning

@@ -1,8 +1,8 @@
 """Adversarial scenario harness (DESIGN.md §11).
 
-Counterpart of ``repro/fl/scenarios.py`` on the simulation backend:
-named, seed-reproducible compositions of the stressors the port models
-one at a time —
+Counterpart of ``repro/fl/scenarios.py``, on the simulation or the
+wire backend: named, seed-reproducible compositions of the stressors
+the port models one at a time —
 
 * **churn** — per-round party arrival and departure (elastic
   membership, Alg. 2 re-election on every change);
@@ -22,8 +22,9 @@ the run's live sets (:func:`expected_counters`), and every round's
 outcome.  The reference starts from ``init(jax.random.PRNGKey(seed))``,
 which the port cannot draw: pass ``init_params`` (the reference's
 parameters, or a module) to start from the same point; without it the
-port's own seeded init is used.  The wire backend is a later slice and
-raises ``NotImplementedError``.
+port's own seeded init is used.  ``backend="wire"`` runs the same
+rounds through party worker processes on ``device`` (``repro_torch.net``)
+with the reference's patient wire defaults.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from repro_torch.models import simple_nn
 from .cohort import sample_cohort
 from .faults import DEALER_TAMPER_MODES
 from .rounds import FedAvgConfig, run_fedavg
-from .transport import reject_later
 
 __all__ = [
     "ChurnConfig", "DealerConfig", "ScenarioConfig", "StragglerConfig",
@@ -132,7 +132,7 @@ class ScenarioConfig:
     norm_bound: float | None = None
     #: per-round cohort size (DESIGN.md §12); None = full participation
     cohort: int | None = None
-    backend: str = "sim"           # sim (the wire is a later slice)
+    backend: str = "sim"           # sim | wire
     #: extra options of the wire backend
     wire_kwargs: dict | None = None
     #: also run a dealer-free twin and record its loss and accuracy
@@ -144,7 +144,6 @@ class ScenarioConfig:
     def __post_init__(self):
         if self.backend not in ("sim", "wire"):
             raise ValueError(f"backend {self.backend!r} not sim|wire")
-        reject_later(backend=self.backend)
         for d in self.dealers:
             if not 0 <= d.party < self.n:
                 raise ValueError(
@@ -355,6 +354,15 @@ def run_scenario(scn, init_params=None, device="cuda") -> dict:
     latency = (straggler_latencies(scn.n, scn.straggler)
                if scn.straggler is not None else None)
 
+    wire_kwargs = None
+    if scn.backend == "wire":
+        # the reference's patient wire defaults: no straggler deadline
+        # (a party's first use of the device is not a straggle; the
+        # protocol's EOF dropout detection stays on) and a long round
+        # timeout
+        wire_kwargs = {"deadline_s": None, "round_timeout_s": 600.0}
+        wire_kwargs.update(scn.wire_kwargs or {})
+
     cfg = FedAvgConfig(
         n_parties=scn.n, epochs=scn.epochs, local_steps=scn.local_steps,
         committee=scn.m, scheme=scn.scheme, protocol="two_phase",
@@ -367,7 +375,7 @@ def run_scenario(scn, init_params=None, device="cuda") -> dict:
         norm_bound=scn.norm_bound,
         dealer_tamper=({d.party: (d.mode, d.round_index)
                         for d in scn.dealers} if scn.dealers else None),
-        cohort=scn.cohort)
+        wire_kwargs=wire_kwargs, cohort=scn.cohort)
 
     params0 = {k: v.detach() for k, v in model.named_parameters()}
     d = int(flatten(params0)[0].shape[0])

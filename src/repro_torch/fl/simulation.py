@@ -7,8 +7,11 @@ counters can be held against the closed forms of Eqs. 1–8
 (``vss``, ``reelect_each_round``, ``norm_bound``, ``dealer_tamper``) and
 ``cohort`` go to the two-phase transport.  A ``repro_torch.api.
 ExperimentSpec`` may stand in for the keyword arguments; an unknown
-keyword raises ``TypeError`` with a did-you-mean hint.  The wire
-backend is a later slice and raises ``NotImplementedError``.
+keyword raises ``TypeError`` with a did-you-mean hint.
+``backend="wire"`` swaps the two-phase transport for the real
+multi-process deployment (``repro_torch.net.WireTransport``, party
+workers on the simulation's device); use it as a context manager (or
+call ``close()``) so the worker processes are reaped.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ class FLSimulation:
     ``device`` (the card unless ``"cpu"`` is asked for).
 
     ``kernel_backend`` must stay ``None`` (the device picks the path);
-    ``wire_kwargs`` belongs to the wire backend and is ignored by the
-    simulation, as in the reference.
+    ``wire_kwargs`` forwards extra ``WireTransport`` options
+    (``log_dir=``, ``deadline_s=``, ...) under ``backend="wire"`` and is
+    ignored by the simulation, as in the reference.
     """
 
     def __init__(self, n, m: int = 3, scheme: str = "additive",
@@ -74,7 +78,7 @@ class FLSimulation:
         if backend not in ("sim", "wire"):
             raise ValueError(f"unknown backend {backend!r}; expected "
                              "'sim' or 'wire'")
-        reject_later(compression=compression, backend=backend)
+        reject_later(compression=compression)
         self.device = dispatch.resolve_device(device)
         self.n = n
         self.m = m
@@ -91,14 +95,26 @@ class FLSimulation:
         self.transports: dict[str, Transport] = {
             "plain": PlainTransport(n, **kw),
             "p2p": P2PTransport(n, **kw),
+        }
+        if backend == "wire":
+            # the real multi-process deployment of the paper's protocol;
+            # the baselines stay in-sim (the wire only speaks two_phase)
+            from repro_torch.net import WireTransport
+            self.transports["two_phase"] = WireTransport(
+                n, m=m, b=b, scheme=scheme, seed=seed, net=self.net,
+                fp=fp, shamir_degree=shamir_degree,
+                chunk_elems=chunk_elems, vss=vss,
+                reelect_each_round=reelect_each_round,
+                norm_bound=norm_bound, dealer_tamper=dealer_tamper,
+                cohort=cohort, device=self.device, **(wire_kwargs or {}))
+        else:
             # the malicious-security knobs are two-phase only:
             # commitments verify committee partial sums, and per-round
             # re-election is the committee's Phase I
-            "two_phase": TwoPhaseTransport(
+            self.transports["two_phase"] = TwoPhaseTransport(
                 n, vss=vss, reelect_each_round=reelect_each_round,
                 norm_bound=norm_bound, dealer_tamper=dealer_tamper,
-                cohort=cohort, **kw),
-        }
+                cohort=cohort, **kw)
 
     @property
     def committee(self):
@@ -143,12 +159,32 @@ class FLSimulation:
         """Alg. 3: share upload -> committee chain-sum -> broadcast, with
         injected member dropouts and (``vss=True``) member tampering."""
         live = sorted(alive) if alive is not None else list(range(self.n))
+        # the fault injections are simulated; on the wire members drop
+        # or tamper by doing it, so the keywords go through only when
+        # set (a TypeError there rather than an ignored fault)
+        kw = ({"committee_dropout": committee_dropout}
+              if committee_dropout else {})
+        if committee_tamper:
+            kw["committee_tamper"] = committee_tamper
         mean = self.transports["two_phase"].aggregate(
             [flats[i] for i in live], party_ids=live,
-            round_index=self.round, committee_dropout=committee_dropout,
-            committee_tamper=committee_tamper)
+            round_index=self.round, **kw)
         self.round += 1
         return mean, self.net.stats()
+
+    # -- lifecycle (the wire backend owns OS processes) ---------------------
+
+    def close(self) -> None:
+        for tr in self.transports.values():
+            closer = getattr(tr, "close", None)
+            if closer is not None:
+                closer()
+
+    def __enter__(self) -> "FLSimulation":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- paper-equation cross-check -----------------------------------------
 

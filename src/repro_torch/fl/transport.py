@@ -11,7 +11,9 @@ Counterpart of the counting transports of ``repro/fl/transport.py``:
   round: Feldman commitments, member-row verification, blame, eviction
   and re-election, and the per-dealer norm audit (DESIGN.md §10–11);
   with ``cohort=c`` each round runs over a seeded cohort of ``c``
-  parties sampled from the registry of ``n`` (DESIGN.md §12).
+  parties sampled from the registry of ``n`` (DESIGN.md §12);
+* ``repro_torch.net.WireTransport`` (``backend="wire"``) — the real
+  multi-process deployment over TCP, with party workers on the device.
 
 The party-side math runs through ``SecureAggregator`` on the
 transport's device.  Knobs of later slices of the port raise
@@ -48,7 +50,6 @@ __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
 LATER_SLICES = {
     "compression": "top-k compression (queue 1, item 6)",
     "compress_topk": "top-k compression (queue 1, item 6)",
-    "backend": "the wire transport (queue 1, item 8)",
 }
 
 
@@ -63,12 +64,10 @@ def not_ported(what: str, knob: str) -> NotImplementedError:
 def reject_later(**knobs) -> None:
     """Raise ``NotImplementedError`` for a later-slice knob that is set.
 
-    A knob at its default (falsy, a disabled ``CompressionConfig``, or
-    a ported ``backend``: ``"sim"``, ``"spmd"``) passes.
+    A knob at its default (falsy, or a disabled ``CompressionConfig``)
+    passes.
     """
     for name, value in knobs.items():
-        if name == "backend" and value in ("sim", "spmd"):
-            continue
         if not value or getattr(value, "enabled", True) is False:
             continue
         raise not_ported(f"{name}={value!r}", name)
@@ -116,6 +115,26 @@ class Network:
     def send_batch(self, count: int, n_elems: int, phase: str):
         """``count`` messages of ``n_elems`` each, in one call."""
         self.phases.setdefault(phase, PhaseStats()).add_batch(count, n_elems)
+
+    def absorb(self, msg_num: int, msg_size: int, phase: str):
+        """Fold a remote meter digest into the counters: ``msg_size`` is
+        the *total* element count of the digest's ``msg_num`` messages
+        (the tree relay's home members meter their regions' uploads and
+        the coordinator replays the digests here, DESIGN.md §13)."""
+        if msg_num < 0 or msg_size < 0:
+            raise ValueError(
+                f"meter digest must be non-negative, got "
+                f"({msg_num}, {msg_size})")
+        if (msg_num == 0) != (msg_size == 0):
+            raise ValueError(
+                f"inconsistent meter digest ({msg_num} messages, "
+                f"{msg_size} elements): zero-size messages are never "
+                "counted, so both are zero or neither is")
+        if msg_num == 0:
+            return
+        st = self.phases.setdefault(phase, PhaseStats())
+        st.msg_num += msg_num
+        st.msg_size += msg_size
 
     def stats(self, phase: str | None = None) -> PhaseStats:
         if phase is not None:
@@ -807,11 +826,19 @@ class SPMDTransport(Transport):
 
 def make_transport(protocol: str, n: int, *, backend: str = "sim",
                    device="cuda", **kw) -> Transport:
-    """Factory of the counting simulation transports on ``device``, or of
-    the SPMD adapter (``backend="spmd"``)."""
-    reject_later(backend=backend)
+    """Factory of the counting simulation transports on ``device``, of
+    the SPMD adapter (``backend="spmd"``), or of the real wire
+    (``backend="wire"``: a coordinator and one party worker process per
+    party, the workers' math on ``device``; two_phase only)."""
     if backend == "spmd":
         return SPMDTransport(protocol, n=n, device=device, **kw)
+    if backend == "wire":
+        if protocol != "two_phase":
+            raise ValueError(
+                f"the wire backend only deploys the two_phase protocol, "
+                f"not {protocol!r}")
+        from repro_torch.net import WireTransport
+        return WireTransport(n, device=device, **kw)
     if backend != "sim":
         raise ValueError(f"unknown backend {backend!r}")
     if protocol not in SIM_TRANSPORTS:

@@ -9,8 +9,9 @@
   by field; every entry point of the port takes a spec;
 * the deprecated ``FedAvgConfig.agg_kwargs`` warns
   ``ReproDeprecationWarning`` and gives the typed path's bits;
-* the wire backend and top-k compression raise ``NotImplementedError``
-  naming ROADMAP queue 1, items 8 and 6;
+* top-k compression raises ``NotImplementedError`` naming ROADMAP queue
+  1, item 6; the wire backend (item 8, ported in slice 10) builds the
+  reference's ``WireConfig`` and transport keywords and constructs;
 * ``launch.train --spec`` (inline JSON and a file) at smoke size on the
   CPU.
 """
@@ -183,17 +184,14 @@ def test_agg_kwargs_shim_warns_and_matches_the_typed_path_bitwise():
     "flsim_topk", "make_transport_topk",
 ])
 def test_wire_and_topk_paths_raise_naming_their_items(case):
-    wire = api.ExperimentSpec(n=4, backend="wire")
+    """Top-k raises naming item 6.  The wire cases check the ported wire
+    path instead (item 8, slice 10): each builds what the reference's
+    builds, and no wire entry raises naming item 8."""
+    if case.endswith("wire") or case.startswith("wire"):
+        _check_wire_case(case)
+        return
     topk = api.ExperimentSpec(n=4, compress_topk=0.1)
     call, item = {
-        "wire_config": (wire.wire_config, 8),
-        "wire_transport_kwargs": (wire.wire_transport_kwargs, 8),
-        "make_transport_wire": (lambda: api.make_transport(
-            wire, device="cpu"), 8),
-        "flsim_wire": (lambda: FLSimulation(wire, device="cpu"), 8),
-        "fedavg_wire": (wire.fedavg_config, 8),
-        "scenario_wire": (lambda: scenarios.ScenarioConfig(
-            name="w", backend="wire"), 8),
         "fedavg_topk": (topk.fedavg_config, 6),
         "flsim_topk": (lambda: FLSimulation(topk, device="cpu"), 6),
         "make_transport_topk": (lambda: api.make_transport(
@@ -202,6 +200,45 @@ def test_wire_and_topk_paths_raise_naming_their_items(case):
     with pytest.raises(NotImplementedError,
                        match=rf"not ported yet.*item {item}\)"):
         call()
+
+
+def _check_wire_case(case):
+    from repro_torch.net import WireTransport
+    kw = dict(n=6, m=3, scheme="shamir", shamir_degree=1, vss=True,
+              seed=3, cohort=5, relay="tree", lease_s=12.0,
+              frac_bits=14, clip=16.0, backend="wire")
+    wire, ref = api.ExperimentSpec(**kw), j_api.ExperimentSpec(**kw)
+    if case == "wire_config":
+        assert wire.wire_config().to_json() == ref.wire_config().to_json()
+    elif case == "wire_transport_kwargs":
+        ours, theirs = wire.wire_transport_kwargs(), \
+            ref.wire_transport_kwargs()
+        assert dataclasses.astuple(ours.pop("fp")) == \
+            dataclasses.astuple(theirs.pop("fp")) == (14, 16.0, "field")
+        assert ours == theirs
+    elif case == "make_transport_wire":
+        tr = api.make_transport(wire, device="cpu", start=False)
+        try:
+            assert isinstance(tr, WireTransport) and tr.port is None
+            assert tr.cfg == wire.wire_config()
+            assert tr.device.type == "cpu"
+        finally:
+            tr.close()
+    elif case == "flsim_wire":
+        spec = dataclasses.replace(wire, wire_kwargs={"start": False})
+        with FLSimulation(spec, device="cpu") as sim:
+            tr = sim.transports["two_phase"]
+            assert isinstance(tr, WireTransport) and tr.port is None
+            assert tr.net is sim.net and tr.cfg.relay == "tree"
+    elif case == "fedavg_wire":
+        cfg, want = wire.fedavg_config(), ref.fedavg_config()
+        assert cfg.backend == "wire"
+        assert cfg.wire_kwargs == want.wire_kwargs == {
+            "pipeline": False, "lease_s": 12.0, "relay": "tree"}
+    else:
+        scn = scenarios.ScenarioConfig(name="w", backend="wire")
+        assert scn.backend == "wire"
+        assert FedAvgConfig(n_parties=4, backend="wire").backend == "wire"
 
 
 def test_train_takes_a_spec(tmp_path):

@@ -8,7 +8,7 @@
   ``RuntimeError`` when there is none, instead of falling back to the CPU;
 * every knob of a later slice raises ``NotImplementedError`` naming its
   ROADMAP item, and the knobs of the slices already ported reach the
-  transport.
+  transport (the wire backend among them since slice 10).
 """
 
 import ast
@@ -74,6 +74,8 @@ def _entry_points():
     from repro_torch.fl import run_fedavg, spmd
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import simple_nn, transformer
+    from repro_torch.net import WireTransport
+    from repro_torch.net import party
     smoke = get_config("qwen1.5-0.5b", smoke=True)
     ssm_smoke = get_config("falcon-mamba-7b", smoke=True)
     hybrid_smoke = get_config("recurrentgemma-9b", smoke=True)
@@ -109,6 +111,10 @@ def _entry_points():
             lambda p, b: p, lambda i, e, it: None),
         "SimpleNN": lambda: simple_nn.SimpleNN(),
         "ComplexNN": lambda: simple_nn.ComplexNN(),
+        # both raise before binding a port or spawning a worker
+        "WireTransport": lambda: WireTransport(4),
+        "party_main": lambda: party.main(["--port", "1", "--party-id",
+                                          "0"]),
     }
 
 
@@ -122,7 +128,8 @@ def _entry_points():
                                   "init_cache", "serve", "make_prefill_ssm",
                                   "init_cache_ssm", "transformer_hybrid",
                                   "init_cache_hybrid", "make_prefill_hybrid",
-                                  "make_serve_step_hybrid", "serve_hybrid"])
+                                  "make_serve_step_hybrid", "serve_hybrid",
+                                  "WireTransport", "party_main"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -191,15 +198,29 @@ def _train_knob(name):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(compress_topk=0.1), dict(backend="wire"),
+    # the wire backend is ported (slice 10); top-k on it still raises
+    dict(compress_topk=0.1), dict(compress_topk=0.1, backend="wire"),
     "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "enc_dec",
     "prefill", "ckpt_dir", "starcoder2", "layernorm", "window", "serve_tp",
 ])
-def test_later_slice_knobs_raise_not_implemented(knob):
+def test_later_slice_knobs_raise_not_implemented(knob, monkeypatch):
     if isinstance(knob, str):
         with pytest.raises(NotImplementedError,
                            match=r"not ported yet.*ROADMAP queue"):
             _train_knob(knob)()
+        return
+    if knob.get("backend") == "wire":
+        # a wire spec with top-k raises from the spec's transport factory
+        # before a port is bound or a worker spawned
+        from repro_torch import api
+        from repro_torch.net import WireTransport
+
+        def start(self):
+            pytest.fail("the wire transport started")
+        monkeypatch.setattr(WireTransport, "start", start)
+        with pytest.raises(NotImplementedError, match="later|not ported"):
+            api.make_transport(api.ExperimentSpec(n=4, **knob),
+                               device="cpu")
         return
     from repro_torch.fl import FedAvgConfig
     with pytest.raises(NotImplementedError, match="later|not ported"):
@@ -254,12 +275,19 @@ def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
 
 def test_later_slice_transport_options_raise_not_implemented():
     from repro_torch.fl import SPMDTransport, make_transport
+    from repro_torch.net import WireTransport
     # the SPMD backend is ported (a world of one without a process
-    # group); the wire backend still raises
+    # group), and so is the wire (slice 10): unstarted, it has bound no
+    # port and spawned no worker; it deploys only two_phase
     tr = make_transport("two_phase", 4, backend="spmd", device="cpu")
     assert isinstance(tr, SPMDTransport) and tr.mode == "psum"
-    with pytest.raises(NotImplementedError, match="wire"):
-        make_transport("two_phase", 4, backend="wire", device="cpu")
+    tr = make_transport("two_phase", 4, backend="wire", device="cpu",
+                        start=False)
+    assert isinstance(tr, WireTransport) and tr.port is None
+    assert tr.device.type == "cpu" and tr.cfg.n == 4
+    tr.close()
+    with pytest.raises(ValueError, match="two_phase"):
+        make_transport("p2p", 4, backend="wire", device="cpu")
     # the cohort slice's options are ported: eligible= restricts the
     # pool in cohort mode and is ignored outside it
     tr = make_transport("two_phase", 4, device="cpu")
