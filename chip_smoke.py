@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each a hard check (any failure raises, and the script exits
 non-zero without the final result line):
 
-1. device: the card's name and power limit as nvidia-smi reports them;
+1. device: the card's name and power limit as nvidia-smi reports them,
+   and the host's CPU model and cores;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
    every instantiation of the attention kernels (flash: float32 on the
    CUDA cores and bf16 on the tensor cores, each at D up to 32, 64, 128,
@@ -77,7 +78,19 @@ non-zero without the final result line):
 7. audit: the norm-bound dealer audit at n=1,024, s=10,000 with a
    ``scale`` and a ``sign_flip`` dealer, both blamed, and a
    ``malformed`` dealer that fails the round;
-8. cohort: cohort-sampled rounds through ``FLSimulation(...,
+8. topk: top-k compression with error feedback at the main round's size
+   (n = 10,000, s = 10,000, m = 3, 1 % kept, Q.10 codec): two rounds of
+   each scheme through ``FLSimulation(compression=...)``, then a plain
+   round of every party and a P2P round of 16: each mean ``torch.equal``
+   to the same rounds composed on the card from a stable sort of each
+   row (the lowest index first among equal magnitudes) and the plain
+   share and reconstruct versions, each party's residual equal to that
+   composition's, sent + kept equal to the carried update, the phase-2
+   counters equal to the top-k form of Eq. 6 (P2P's to Eq. 2's), the
+   share and reconstruct kernels launched; and a row with 300 magnitudes
+   tied at the top-k boundary whose selection on the card is the
+   lowest-indexed set;
+9. cohort: cohort-sampled rounds through ``FLSimulation(...,
    cohort=1000)`` over a registry of 100,000 parties at s = 10,000, a
    ``FixedPointConfig(frac_bits=15, clip=32.0)`` codec, three rounds per
    scheme, with a seeded 10 % of the registry leaving the eligible pool
@@ -89,7 +102,7 @@ non-zero without the final result line):
    the same round through the plain versions on the card, one launch of
    the scheme's share and reconstruct kernels; the draw's ms, the Phase I
    and Phase II wall seconds and one traced round's device busy share;
-9. scenarios: the reference's battery through ``run_scenario`` on the
+10. scenarios: the reference's battery through ``run_scenario`` on the
    card: the eight simulation scenarios (honest, two non-IID splits,
    churn, stragglers, a scaled and a sign-flipped dealer with their
    honest twins, a malformed dealer) and the two wire scenarios
@@ -98,7 +111,7 @@ non-zero without the final result line):
    poisoned dealer banned, the malformed dealer's round aborted by the
    verify's ``ValueError``, every final accuracy above 0.5, each
    record's wall time;
-10. wire: the wire transport (``make_transport(backend="wire")``: a
+11. wire: the wire transport (``make_transport(backend="wire")``: a
    coordinator on the host, 8 party worker processes spawned with
    ``--device cuda``, the warm-up barrier on), n = 8, m = 3, s =
    2,500,000 (three chunks of the default 2^20, the last 402,848), two
@@ -118,23 +131,23 @@ non-zero without the final result line):
    ``verify_shares`` launches in every member's record; and one cohort
    round (registry 8, cohort 6, hub) whose cohort equals
    ``sample_cohort`` on the CPU and whose mean equals the sim's;
-11. streaming: chunked aggregation equals the whole vector, and the card
+12. streaming: chunked aggregation equals the whole vector, and the card
    equals the port's CPU path, bit for bit;
-12. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
-13. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
+13. FedAvg: ``run_fedavg`` on SimpleNN with 8 parties on the card;
+14. single-party kernels: ``share_gen`` and ``shamir_share`` (the SPMD
     path's share kernels) against their plain versions, ``torch.equal``,
     at the train path's largest leaf (D = 155,582,464, m = 3, degree 2)
     and at a ragged D = 10,001 with ``hi_base`` 192, with times and
     bounds; then ``reconstruct`` and ``shamir_reconstruct`` of the
     largest leaf's shares against their plain versions, timed alike;
-14. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
+15. spmd: four ``gloo`` ranks on the one card (ranks share it, so the
     backend rule picks gloo; ``reduce_scatter`` and ``all_gather`` stage
     through host memory): every mode and scheme of
     ``fl.spmd.secure_aggregate``, each rank's mean bit-identical to the
     others and, in the secure modes, to the same aggregation composed
     from the plain versions on the card; then two train steps of the
     smoke config, with identical parameters on every rank;
-15. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
+16. train: the federated LM trainer (``launch.train``) on qwen1.5-0.5b
     at full width and depth, a world of one, global batch 8 x seq 128,
     four steps each of ``plain``, ``two_phase`` additive and
     ``two_phase`` Shamir: every step's aggregated gradient, leaf by leaf,
@@ -145,14 +158,36 @@ non-zero without the final result line):
     trainer's own "tok/s" lines count it), then one profiled step split
     into its ``fwd_bwd``, ``secure_aggregate`` and ``adamw_update``
     ranges and one unchecked step with its peak device memory;
-16. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
+17. train_topk: the same trainer with ``--compress-topk 0.01``, three
+    steps each of additive and Shamir: every step's aggregate bit for bit
+    against decode(encode(densified g)) from the plain versions, 14
+    launches of each kernel a step, step wall time and tok/s;
+18. fsdp: the trainer's default command (``launch.train --steps 3``:
+    tinyllama-1.1b at full size, 22 layers, batch 8 x seq 128) on one
+    card as a world of one, which the layout rule sends through
+    MPC-FSDP: ``share_gen`` and ``reconstruct`` launched in every step
+    (the secure reduce-scatter in backward), one step's parameters bit
+    for bit equal to the same step in the replicated layout, step wall,
+    tok/s, peak memory and one profiled step's busy share; both kernels
+    against their plain versions at the FSDP shapes (a layer's
+    ``w_gate``, the embedding), timed; then four ``gloo`` ranks on the
+    card at tinyllama-1.1b's width and one layer: each rank's
+    aggregated gradient (its shards of the split leaves, taken through
+    ``observe``) equal to its slice of the replicated layout's aggregate
+    (at most 0.1 % of a leaf's nonzero elements apart, each by at most
+    2^-16), and the gathered parameters after the step identical on
+    every rank and within 1e-6 of the replicated layout's;
+19. ckpt: the smoke config on the card with ``--compress-topk``: two
+    steps, a checkpoint, two more resumed from it, bit for bit equal to
+    four steps run straight (parameters, moments and residuals);
+20. prefill: ``make_prefill`` on qwen1.5-0.5b at full width and depth,
     random weights from seed 0, batch 8 x prompt 2,048 in the config's
     bf16: 24 flash launches per call, wall time and tok/s per call, the
     logits against the same prefill through the plain attention on the
     card (in float32 compute to 1e-3; in bf16 within the distance, as a
     root mean square over the logits, that bf16 compute puts between the
     plain logits and float32's), and one profiled call;
-17. serve: the ``launch.serve`` loop (prefill by decode, then greedy
+21. serve: the ``launch.serve`` loop (prefill by decode, then greedy
     generation) on qwen1.5-0.5b at full size, batch 8, prompt 512,
     gen 128: in float32 compute, every step's logits against the plain
     step on the card fed the same tokens (each with its own bf16 cache)
@@ -160,34 +195,34 @@ non-zero without the final result line):
     first generated token's logits against the prefill's to 5e-2; then
     in the config's bf16, 24 decode launches per step, ms per step,
     tok/s, peak memory and one profiled step's device busy share;
-18. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
+22. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
     7.27 B parameters, random weights from seed 0), ``make_prefill`` at
     batch 8 x 2,048 in bf16: 64 launches of the selective-scan kernel a
     call, wall time, tok/s, peak memory and one profiled call; the
     logits against the chunked plain path at batch 2 (float32 compute to
     1e-3; bf16 within the distance, as an RMS, that bf16 compute puts
     between the plain logits and float32's);
-19. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
+23. ssm_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's logits against the
     prefill's in float32 compute (1e-3), then in bf16 ms per step, tok/s,
     peak memory and one profiled step (the SSM step runs no hand-written
     kernel, as the reference's);
-20. hybrid_prefill: recurrentgemma-9b at full width and depth (38
+24. hybrid_prefill: recurrentgemma-9b at full width and depth (38
     layers, 10,444,984,320 parameters, random weights from seed 0),
     ``make_prefill`` at batch 8 x 2,048 in bf16: 26 ``lru_scan`` and 12
     flash launches a call, wall time, tok/s, peak memory and one
     profiled call; the logits against the plain path (chunked scan,
     plain attention) at batch 2 (float32 compute to 1e-3; bf16 within
     the bf16-vs-float32 RMS);
-21. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
+25. hybrid_serve: the ``launch.serve`` loop on the same model, batch 8,
     prompt 128, gen 64: the first generated token's float32 logits
     against the prefill's with a float32 cache (1e-3) and with the bf16
     cache (5e-2), then in bf16 12 decode launches a step, ms per step,
     tok/s, peak memory and one profiled step;
-22. ring: the smoke config (window 8) served through the kernels for 24
+26. ring: the smoke config (window 8) served through the kernels for 24
     steps, so its 8-slot ring wraps twice, each step's float32 logits
     against the plain step fed the same tokens (1e-4);
-23. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+27. summary: a ``{"kernels": [...]}`` line (the attention kernels also
     at D = 256, under ``d256``), then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
@@ -205,6 +240,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -313,8 +349,31 @@ def phase_device() -> str:
     emit({"phase": "device", "nvidia_smi": smi[0],
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host": host_facts()})
     return smi[0]
+
+
+def host_facts() -> dict:
+    """The host's CPU model and its cores (host times vary with them)."""
+    import platform
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for ln in fh:
+                key, _, value = ln.partition(":")
+                info.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    model = next((info[k] for k in ("model name", "cpu model", "hardware")
+                  if info.get(k)), "") or platform.processor()
+    if not model and info.get("cpu family"):
+        model = (f"{info.get('vendor_id', '')} family {info['cpu family']} "
+                 f"model {info.get('model', '?')}")
+    return {"cpu_model": model or "unknown",
+            "vendor": info.get("vendor_id", ""),
+            "machine": platform.machine(), "cpu_count": os.cpu_count(),
+            "cores_usable": len(os.sched_getaffinity(0))}
 
 
 def phase_build() -> None:
@@ -1971,14 +2030,45 @@ def _profile_step(step_fn, model, opt, step_idx: int, batch) -> dict:
                     for k, t, c in kernels[:8]]}
 
 
+def _aggregate_check(what: str, protocol: str, scheme: str, seed: int,
+                     check_s: list):
+    """A ``TrainStep.observe`` that holds each step's aggregate against
+    decode(encode(g)) composed from the plain versions on the card, leaf
+    by leaf (``g`` the party's gradient as the step shares it: densified
+    under top-k); appends each check's seconds to ``check_s``."""
+    import torch
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.fl import spmd
+
+    def observe(grads, agg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_idx = len(check_s)
+        got = dict(flatten_with_path(agg))
+        for path, g in flatten_with_path(grads):
+            flat = g.detach().reshape(-1).float()
+            if protocol == "plain":
+                want = flat / 1
+            else:
+                leaf_seed = (seed ^ spmd.leaf_seed_tag(path)) & 0x7FFFFFFF
+                want = plain_spmd_mean([flat], scheme, 3, leaf_seed,
+                                       step_idx)
+            require(torch.equal(got[path].reshape(-1).view(torch.int32),
+                                want.view(torch.int32)),
+                    f"{what} step {step_idx}: leaf {path} differs from the "
+                    "plain composition")
+            del want
+        torch.cuda.synchronize()
+        check_s.append(time.perf_counter() - t0)
+    return observe
+
+
 def phase_train() -> dict:
     """The federated LM trainer on qwen1.5-0.5b at full size; returns the
     launches of the secure runs."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.tree import flatten_with_path
     from repro_torch.data import lm_batch
-    from repro_torch.fl import spmd
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train
     steps, batch, seq, seed = 4, 8, 128, 0
@@ -1987,32 +2077,8 @@ def phase_train() -> dict:
     for protocol, scheme in (("plain", "additive"), ("two_phase", "additive"),
                              ("two_phase", "shamir")):
         check_s = []
-
-        def observe(grads, agg, protocol=protocol, scheme=scheme,
-                    check_s=check_s):
-            # the step's aggregate against decode(encode(g)) composed
-            # from the plain versions on the card, leaf by leaf
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step_idx = len(check_s)
-            got = dict(flatten_with_path(agg))
-            for path, g in flatten_with_path(grads):
-                flat = g.detach().reshape(-1).float()
-                if protocol == "plain":
-                    want = flat / 1
-                else:
-                    leaf_seed = (seed ^ spmd.leaf_seed_tag(path)) \
-                        & 0x7FFFFFFF
-                    want = plain_spmd_mean([flat], scheme, 3, leaf_seed,
-                                           step_idx)
-                require(torch.equal(got[path].reshape(-1).view(torch.int32),
-                                    want.view(torch.int32)),
-                        f"train {protocol}/{scheme} step {step_idx}: leaf "
-                        f"{path} differs from the plain composition")
-                del want
-            torch.cuda.synchronize()
-            check_s.append(time.perf_counter() - t0)
-
+        observe = _aggregate_check(f"train {protocol}/{scheme}", protocol,
+                                   scheme, seed, check_s)
         args = train.parse_args(
             ["--arch", "qwen1.5-0.5b", "--steps", str(steps), "--batch",
              str(batch), "--seq", str(seq), "--protocol", protocol,
@@ -2071,6 +2137,490 @@ def phase_train() -> dict:
         del model, opt, step_fn
     torch.cuda.empty_cache()
     return launches
+
+
+#: the top-k rounds: the main round's size, 1 % of the coordinates kept
+TOPK_SHAPE = dict(n=10_000, s=10_000, m=3, ratio=0.01, rounds=2, seed=1,
+                  chunk=1024, p2p_parties=16)
+
+
+def _plain_topk(carried, k: int):
+    """Top-k of each row composed another way than the transport's: a
+    stable descending sort of the magnitudes (the lowest index first
+    among equals, as ``jax.lax.top_k``), the first k scattered onto
+    zeros.  Returns (sent, kept)."""
+    import torch
+    idx = torch.sort(carried.abs(), dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    sent = torch.zeros_like(carried).scatter_add_(1, idx,
+                                                  carried.gather(1, idx))
+    return sent, carried.scatter(1, idx, 0.0)
+
+
+def _topk_rows(n: int, s: int, rounds: int):
+    """Each round's updates on the card: Gaussian draws on a grid of
+    1/64, so magnitudes tie at the top-k boundary."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    return [(torch.randn((n, s), device="cuda", generator=gen) * 6.4)
+            .round() / 64 for _ in range(rounds)]
+
+
+def _topk_tie_row() -> None:
+    """A row whose k-th magnitude is shared by many entries: the card's
+    selection must be the lowest-indexed set, as a stable sort on the
+    host picks it."""
+    import torch
+    from repro_torch.core.compression import (CompressionConfig,
+                                              compress_topk_batch)
+    s, k = 10_000, 100
+    row = np.full(s, 0.01, np.float32)
+    rng = np.random.RandomState(5)
+    row[rng.choice(s, 60, replace=False)] = 1.0      # above the boundary
+    ties = rng.choice(np.flatnonzero(row < 1), 300, replace=False)
+    row[ties] = np.where(rng.rand(300) < 0.5, 0.5, -0.5)  # the k-th value
+    cfg = CompressionConfig(enabled=True, top_k_ratio=k / s)
+    dense, kept = compress_topk_batch(torch.from_numpy(row)[None].cuda(),
+                                      cfg, torch.zeros((1, s), device="cuda"))
+    want = np.sort(np.argsort(-np.abs(row), kind="stable")[:k])
+    got = np.flatnonzero(dense[0].cpu().numpy())
+    require(np.array_equal(got, want),
+            "topk: the card's selection at a tied boundary is not the "
+            "lowest-indexed set")
+    require(torch.equal(dense + kept, torch.from_numpy(row)[None].cuda()),
+            "topk: sent + kept differs from the row")
+
+
+def phase_topk() -> dict:
+    """Top-k rounds at n = 10,000, s = 10,000; returns the launches."""
+    import torch
+    from repro_torch.core import costmodel
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.fixed_point import FixedPointConfig
+    from repro_torch.fl import FLSimulation
+    from repro_torch.kernels import dispatch
+    sh = TOPK_SHAPE
+    n, s, m, seed, chunk = sh["n"], sh["s"], sh["m"], sh["seed"], sh["chunk"]
+    k = max(1, int(s * sh["ratio"]))
+    cfg = CompressionConfig(enabled=True, top_k_ratio=sh["ratio"])
+    rows = _topk_rows(n, s, sh["rounds"])
+    _topk_tie_row()
+    launches: dict = {}
+    for scheme, algebra in (("additive", "ring"), ("shamir", "field")):
+        fp = FixedPointConfig(frac_bits=10, clip=64.0, algebra=algebra)
+        sim = FLSimulation(n, m=m, seed=seed, fp=fp, scheme=scheme,
+                           chunk=chunk, compression=cfg, device="cuda")
+        kept = torch.zeros((n, s), device="cuda")
+        walls, counts = [], {}
+        for r, x in enumerate(rows):
+            dispatch.reset_launches()
+            wall, (mean, _) = _timed(lambda: sim.aggregate("two_phase", x))
+            walls.append(wall)
+            for key, c in dispatch.launches.items():
+                counts[key] = counts.get(key, 0) + c
+            carried = x + kept
+            sent, kept = _plain_topk(carried, k)
+            require(torch.equal(sent + kept, carried),
+                    f"topk {scheme} round {r}: sent + kept != carried")
+            want = plain_round_mean(sent, scheme, fp, m, seed, chunk,
+                                    round_index=r)
+            require(torch.equal(mean.view(torch.int32),
+                                want.view(torch.int32)),
+                    f"topk {scheme} round {r}: the mean differs from the "
+                    "plain composition")
+            del carried, sent, want, mean
+        tr = sim.transports["two_phase"]
+        require(torch.equal(tr.error_states(range(n)), kept),
+                f"topk {scheme}: the residuals differ from the plain "
+                "composition's")
+        p = costmodel.CostParams(n=n, e=sh["rounds"], s=s, m=m)
+        p2 = sum(sim.net.stats(ph).msg_size for ph in (
+            "phase2_upload", "phase2_exchange", "phase2_broadcast"))
+        require(p2 == costmodel.phase2_msg_size_topk(p, sh["ratio"]),
+                f"topk {scheme}: phase 2 counters {p2} differ from the "
+                "top-k form of Eq. 6")
+        share_k = ("repro_share_gen_batch" if scheme == "additive"
+                   else "repro_shamir_share_batch")
+        rec_k = ("repro_reconstruct" if scheme == "additive"
+                 else "repro_shamir_reconstruct")
+        require(counts.get(share_k, 0) == sh["rounds"] * -(-n // chunk)
+                and counts.get(rec_k, 0) == sh["rounds"],
+                f"topk {scheme}: kernel launches {counts}")
+        for key in (share_k, rec_k):
+            launches[key] = launches.get(key, 0) + counts[key]
+        entry = {"phase": "topk", "scheme": scheme, "n": n, "s": s, "m": m,
+                 "ratio": sh["ratio"], "k": k, "rounds": sh["rounds"],
+                 "phase2_wall_s": walls, "phase2_msg_size": p2,
+                 "phase2_msg_size_dense": costmodel.phase2_msg_size(p),
+                 "launches": {key: c for key, c in counts.items() if c},
+                 "equal_to_plain_round": True, "residuals_equal": True}
+        if scheme == "additive":
+            # the baselines over the same transports' network: one plain
+            # round of every party and one P2P round of the first few
+            # (P2P shares to every other party: m = l)
+            l = sh["p2p_parties"]
+            for protocol, x, ids in (("plain", rows[0], None),
+                                     ("p2p", rows[1][:l], list(range(l)))):
+                tr_b = sim.transports[protocol]
+                r = sim.round
+                mean, _ = sim.aggregate(protocol, x, party_ids=ids)
+                sent, kept_b = _plain_topk(x, k)
+                want = (sent.mean(dim=0) if protocol == "plain"
+                        else plain_round_mean(sent, "additive", fp, l, seed,
+                                              chunk, ids=ids,
+                                              round_index=r))
+                require(torch.equal(mean.view(torch.int32),
+                                    want.view(torch.int32)),
+                        f"topk {protocol}: the mean differs from the plain "
+                        "composition")
+                require(torch.equal(tr_b.error_states(
+                    ids if ids is not None else range(n)), kept_b),
+                        f"topk {protocol}: the residuals differ")
+            q = costmodel.CostParams(n=l, e=1, s=s, m=m)
+            require(sim.net.stats("p2p").msg_size
+                    == costmodel.p2p_msg_size_topk(q, sh["ratio"]),
+                    "topk p2p: counters differ from the top-k form of Eq. 2")
+            entry["baselines_equal_to_plain"] = ["plain", f"p2p l={l}"]
+        emit(entry)
+        del sim, kept
+        torch.cuda.empty_cache()
+    del rows
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_topk() -> dict:
+    """The trainer on qwen1.5-0.5b at full size with ``--compress-topk
+    0.01``, additive and Shamir; returns the launches."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    steps, batch, seq, seed = 3, 8, 128, 0
+    launches: dict = {}
+    for scheme in ("additive", "shamir"):
+        check_s: list = []
+        observe = _aggregate_check(f"train_topk {scheme}", "two_phase",
+                                   scheme, seed, check_s)
+        args = train.parse_args(
+            ["--arch", "qwen1.5-0.5b", "--steps", str(steps), "--batch",
+             str(batch), "--seq", str(seq), "--scheme", scheme, "--seed",
+             str(seed), "--log-every", "1", "--compress-topk", "0.01"])
+        torch.cuda.empty_cache()
+        dispatch.reset_launches()
+        out = train.run(args, observe=observe)
+        counts = dict(dispatch.launches)
+        require(len(check_s) == steps and all(
+            math.isfinite(x) for x in out["losses"]),
+            f"train_topk {scheme}: {len(check_s)} steps checked, losses "
+            f"{out['losses']}")
+        share_k, rec_k = (("repro_share_gen", "repro_reconstruct")
+                          if scheme == "additive" else
+                          ("repro_shamir_share", "repro_shamir_reconstruct"))
+        require(counts[share_k] == 14 * steps and counts[rec_k] == 14 * steps,
+                f"train_topk {scheme}: kernel launches {counts}")
+        for key in (share_k, rec_k):
+            launches[key] = launches.get(key, 0) + counts[key]
+        ef = out["opt_state"]["ef"]
+        from repro_torch.core.tree import leaves
+        kept = sum(int(torch.count_nonzero(e)) for e in leaves(ef))
+        emit({"phase": "train_topk", "arch": "qwen1.5-0.5b", "scheme": scheme,
+              "ratio": 0.01, "parties": 1, "batch": batch, "seq": seq,
+              "losses": out["losses"],
+              "step_wall_s": [w - c for w, c in zip(out["step_wall_s"],
+                                                    check_s)],
+              "tok_per_s": [batch * seq / (w - c) for w, c in
+                            zip(out["step_wall_s"], check_s)],
+              "check_wall_s": sum(check_s), "residual_nonzero": kept,
+              "launches": {k: v for k, v in counts.items() if v},
+              "aggregate_equal_to_plain_composition": True})
+        del out, ef
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: MPC-FSDP at one card: the trainer's default command (tinyllama-1.1b,
+#: batch 8 x seq 128), and four ranks at its width with FSDP_RANK_LAYERS
+FSDP_STEPS, FSDP_RANK_LAYERS, FSDP_WORLD = 3, 1, 4
+#: four parties: each rank's aggregated gradient shards against the
+#: matching slice of the replicated layout's aggregate.  Both decode the
+#: same ring sums, so equal bits are expected; a leaf may differ in at
+#: most FSDP_AGG_MISMATCH of its nonzero elements, each by at most one
+#: quantum of the encoding (a gradient an ulp apart can round to the
+#: next step of the grid)
+FSDP_AGG_MISMATCH, FSDP_AGG_TOL = 1e-3, 2.0 ** -16
+#: the gathered parameters after one step against the replicated
+#: layout's (tests/test_torch_fsdp.py holds the same on four CPU ranks)
+FSDP_LAYOUT_TOL = 1e-6
+
+
+def _fsdp_kernel_rows() -> list:
+    """``share_gen`` and ``reconstruct`` at the FSDP step's shapes: one
+    layer's ``w_gate`` of tinyllama-1.1b and its embedding, each against
+    its plain version, timed."""
+    import torch
+    from repro_torch.core.fixed_point import DEFAULT_RING
+    from repro_torch.kernels.reconstruct import reconstruct, reconstruct_ref
+    from repro_torch.kernels.share_gen import share_gen, share_gen_ref
+    m, keys, rows = 3, (0x2468ACE, 0x13579BDF), []
+    for name, d in (("w_gate", 2048 * 5632), ("embed", 32000 * 2048)):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        x = torch.randn(d, device="cuda", generator=gen) * 0.01
+        shares = share_gen(x, m, *keys, DEFAULT_RING)
+        require(torch.equal(_bits(shares), _bits(share_gen_ref(
+            x, m, *keys, DEFAULT_RING))), f"fsdp share_gen at {name}")
+        require(torch.equal(_bits(reconstruct(shares, 1, DEFAULT_RING)),
+                            _bits(reconstruct_ref(shares, 1, DEFAULT_RING))),
+                f"fsdp reconstruct at {name}")
+        quads = -(-d // 4)
+        for kernel, fn, ref, nbytes, ops in (
+                ("share_gen", lambda: share_gen(x, m, *keys, DEFAULT_RING),
+                 lambda: share_gen_ref(x, m, *keys, DEFAULT_RING),
+                 4 * d + 4 * m * d,
+                 quads * (m - 1) * PHILOX_OPS + d * (m - 1)),
+                ("reconstruct", lambda: reconstruct(shares, 1, DEFAULT_RING),
+                 lambda: reconstruct_ref(shares, 1, DEFAULT_RING),
+                 4 * m * d + 4 * d, (m - 1) * d)):
+            b_ms, b_by = bound(nbytes, ops)
+            row = {"phase": "kernel", "name": kernel, "shape": name, "d": d,
+                   "m": m, "equal": True, "max_abs_err": 0.0,
+                   "ms": cuda_ms(fn, 10), "graph_ms": graph_ms(fn, 5, 10),
+                   "plain_ms": cuda_ms(ref, 2), "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+        del x, shares
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fsdp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One party of the four-rank FSDP check (a process of its own)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_path, path_str
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                                  n_layers=FSDP_RANK_LAYERS)
+        toks, labels = lm_batch(cfg.vocab, 8, 128, seed=0, party=0, step=0)
+        full, aggs = {}, {}
+        out = {"rank": rank}
+        for layout in ("fsdp", "replicated"):
+            step = make_train_step(cfg, fsdp=layout == "fsdp", device="cuda")
+            step.observe = lambda grads, agg, layout=layout: aggs.update(
+                {layout: {p: x.detach().clone()
+                          for p, x in flatten_with_path(agg)}})
+            model = transformer.init(cfg, seed=0, device="cuda")
+            if step.fsdp:
+                dims = step.dims
+                model = step.shard_model(model)
+            opt = adamw_init(model.params())
+            t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, 0,
+                                    {"tokens": toks, "labels": labels})
+            torch.cuda.synchronize()
+            out[f"{layout}_wall_s"] = time.perf_counter() - t0
+            out[f"{layout}_loss"] = float(loss)
+            full[layout] = [leaf.detach() for _, leaf in flatten_with_path(
+                step.full_params(model.params()))]
+            del model, opt
+        out["params_sha"] = _sha(torch.cat([x.reshape(-1)
+                                            for x in full["fsdp"]]))
+        out["max_abs_diff_vs_replicated"] = max(
+            float((a - b).abs().max()) for a, b in zip(full["fsdp"],
+                                                       full["replicated"]))
+        # this rank's aggregate (its shards of the split leaves, whole
+        # the others) against its slice of the replicated aggregate
+        out["agg"] = []
+        for p, got in aggs["fsdp"].items():
+            want = aggs["replicated"][p]
+            if dims[p] is not None:
+                want = want.chunk(world, dims[p])[rank].contiguous()
+            out["agg"].append({
+                "leaf": path_str(p), "split": dims[p] is not None,
+                "shape": list(got.shape), "nonzero": int(
+                    torch.count_nonzero(want)),
+                "unequal": int((got.view(torch.int32)
+                                != want.view(torch.int32)).sum()),
+                "max_abs_diff": float((got - want).abs().max())})
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _fsdp_ranks() -> None:
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import dispatch
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dispatch.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=dispatch.BUILD_ROOT) as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(_fsdp_rank, args=(FSDP_WORLD, port, out_dir),
+                 nprocs=FSDP_WORLD, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(FSDP_WORLD)]
+    for r in ranks:
+        for leaf in r["agg"]:
+            require(leaf["max_abs_diff"] <= FSDP_AGG_TOL
+                    and leaf["unequal"] <= FSDP_AGG_MISMATCH
+                    * leaf["nonzero"]
+                    and (leaf["nonzero"] > 0 or not leaf["split"]),
+                    f"fsdp ranks: rank {r['rank']}'s aggregate of "
+                    f"{leaf['leaf']} is not its slice of the replicated "
+                    f"layout's: {leaf}")
+    require(len({r["params_sha"] for r in ranks}) == 1,
+            "fsdp ranks: the gathered parameters differ between ranks")
+    diff = max(r["max_abs_diff_vs_replicated"] for r in ranks)
+    require(diff <= FSDP_LAYOUT_TOL,
+            f"fsdp ranks: FSDP parameters {diff} from the replicated "
+            f"layout's, above {FSDP_LAYOUT_TOL}")
+    emit({"phase": "fsdp_ranks", "ranks": FSDP_WORLD, "backend": "gloo",
+          "arch": f"tinyllama-1.1b width, {FSDP_RANK_LAYERS} layer(s)",
+          "batch": 8, "seq": 128, "params_identical_on_every_rank": True,
+          "max_abs_diff_vs_replicated": diff, "tol": FSDP_LAYOUT_TOL,
+          "agg_vs_replicated_slice": {
+              "leaves": len(ranks[0]["agg"]),
+              "split_leaves": sum(x["split"] for x in ranks[0]["agg"]),
+              "unequal": [sum(x["unequal"] for x in r["agg"])
+                          for r in ranks],
+              "nonzero": [sum(x["nonzero"] for x in r["agg"])
+                          for r in ranks],
+              "max_abs_diff": max(x["max_abs_diff"] for r in ranks
+                                  for x in r["agg"]),
+              "tol": FSDP_AGG_TOL, "mismatch_share": FSDP_AGG_MISMATCH},
+          "losses": {k: ranks[0][k] for k in ("fsdp_loss",
+                                              "replicated_loss")},
+          "step_wall_s": {k: [r[k] for r in ranks]
+                          for k in ("fsdp_wall_s", "replicated_wall_s")},
+          "wall_s": wall})
+
+
+def phase_fsdp() -> dict:
+    """The trainer's default command (tinyllama-1.1b through MPC-FSDP) on
+    one card, its step against the replicated step, then four ranks;
+    returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    cfg = get_config("tinyllama-1.1b")
+    batch, seq = 8, 128
+    # one step through each layout from the same weights: at one party
+    # both compute decode(encode(g)), so the parameters are the same bits
+    toks, labels = lm_batch(cfg.vocab, batch, seq, seed=0, party=0, step=0)
+    after = {}
+    for fsdp in (True, False):
+        step = make_train_step(cfg, fsdp=fsdp, device="cuda")
+        model = transformer.init(cfg, seed=0, device="cuda")
+        if fsdp:
+            model = step.shard_model(model)
+        opt = adamw_init(model.params())
+        step(model, opt, 0, {"tokens": toks, "labels": labels})
+        after[fsdp] = [leaf.detach() for _, leaf in
+                       flatten_with_path(model.params())]
+        del model, opt
+    require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(after[True], after[False])),
+            "fsdp: one step's parameters differ from the replicated step's")
+    del after
+    torch.cuda.empty_cache()
+
+    per_step: list = []
+
+    def observe(grads, agg):
+        per_step.append(dict(dispatch.launches))
+        dispatch.reset_launches()
+
+    args = train.parse_args(["--steps", str(FSDP_STEPS), "--log-every", "1"])
+    require(args.arch == "tinyllama-1.1b" and (args.batch, args.seq)
+            == (batch, seq), "fsdp: the trainer's defaults changed")
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    out = train.run(args, observe=observe)
+    step_fn = out["step_fn"]
+    require(step_fn.fsdp, "fsdp: the default command did not pick MPC-FSDP")
+    require(len(per_step) == FSDP_STEPS and all(
+        c["repro_share_gen"] > 0 and c["repro_reconstruct"] > 0
+        for c in per_step), f"fsdp: launches per step {per_step}")
+    require(all(math.isfinite(x) for x in out["losses"]),
+            f"fsdp: losses {out['losses']}")
+    peak = torch.cuda.max_memory_allocated()
+    step_fn.observe = None
+    model, opt = out["model"], out["opt_state"]
+    prof = _profile_step(step_fn, model, opt, FSDP_STEPS, dict(zip(
+        ("tokens", "labels"), lm_batch(cfg.vocab, batch, seq, seed=0,
+                                       party=0, step=FSDP_STEPS))))
+    split = sum(d is not None for d in step_fn.dims.values())
+    emit({"phase": "fsdp", "arch": cfg.name, "layout": "mpc_fsdp",
+          "parties": 1, "batch": batch, "seq": seq,
+          "params": cfg.param_count(), "split_leaves": split,
+          "whole_leaves": len(step_fn.dims) - split,
+          "losses": out["losses"], "step_wall_s": out["step_wall_s"],
+          "tok_per_s": [batch * seq / w for w in out["step_wall_s"]],
+          "launches_per_step": [{k: v for k, v in c.items() if v}
+                                for c in per_step],
+          "equal_to_replicated_step": True, "peak_mem_bytes": peak,
+          "profiled_step": prof})
+    launches = {k: sum(c[k] for c in per_step)
+                for k in ("repro_share_gen", "repro_reconstruct")}
+    del out, model, opt, step_fn
+    torch.cuda.empty_cache()
+    _fsdp_kernel_rows()
+    _fsdp_ranks()
+    return launches
+
+
+def phase_ckpt() -> None:
+    """Checkpoint and resume at smoke size on the card: 2 steps, save,
+    then 2 more from the checkpoint, bit-identical to 4 steps run
+    straight, the top-k residuals included."""
+    import tempfile
+    import torch
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    base = ["--arch", "qwen1.5-0.5b", "--smoke", "--batch", "8", "--seq",
+            "64", "--compress-topk", "0.05", "--log-every", "1"]
+    straight = train.run(train.parse_args(base + ["--steps", "4"]))
+    dispatch.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=dispatch.BUILD_ROOT) as ck:
+        first = train.run(train.parse_args(base + ["--steps", "2",
+                                                   "--ckpt-dir", ck]))
+        resumed = train.run(train.parse_args(base + ["--steps", "4",
+                                                     "--ckpt-dir", ck]))
+        saved = sorted(os.listdir(ck))
+    require(resumed["start"] == 2, f"ckpt: resumed at {resumed['start']}")
+    require(first["losses"] + resumed["losses"] == straight["losses"],
+            "ckpt: the resumed losses differ from the straight run's")
+    for what in ("params", "opt"):
+        trees = [r["model"].params() if what == "params" else r["opt_state"]
+                 for r in (resumed, straight)]
+        pairs = zip(flatten_with_path(trees[0]), flatten_with_path(trees[1]))
+        require(all(pa == pb and torch.equal(a.detach(), b.detach())
+                    for (pa, a), (pb, b) in pairs),
+                f"ckpt: the resumed {what} differ from the straight run's")
+    emit({"phase": "ckpt", "arch": "qwen1.5-0.5b smoke", "steps": 4,
+          "resumed_at": 2, "saved": saved, "bit_identical": True,
+          "with": ["params", "m", "v", "ef"]})
 
 
 #: bf16 dense tensor-core peak of an H100 SXM (NVIDIA data sheet): the
@@ -3445,6 +3995,8 @@ def main(argv=None) -> int:
         (flats[:1024] * 0.1).contiguous())
     del flats, vss_flats
     torch.cuda.empty_cache()
+    for key, count in phase_topk().items():
+        launches[key] = launches.get(key, 0) + count
     # the wire's launches are the party workers', read from their logs
     for phase in (phase_cohort, phase_scenarios, phase_wire):
         for key, count in phase().items():
@@ -3455,8 +4007,12 @@ def main(argv=None) -> int:
     phase_spmd()
     # the train path also decodes through the slice-1 reconstructions:
     # their launches are the rounds' and the train steps' together
-    for key, count in phase_train().items():
-        launches[key] = launches.get(key, 0) + count
+    # and so do the top-k steps and the MPC-FSDP steps' backward (the
+    # single-party share and ring reconstruct kernels)
+    for phase in (phase_train, phase_train_topk, phase_fsdp):
+        for key, count in phase().items():
+            launches[key] = launches.get(key, 0) + count
+    phase_ckpt()
     launches["repro_flash_attention"] = phase_prefill()
     launches["repro_decode_attention"] = phase_serve()
     launches["repro_ssm_scan"] = phase_ssm()

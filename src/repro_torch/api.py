@@ -20,9 +20,10 @@ spec has the reference's fields, in its order and with its defaults, so
 a JSON file written by either package loads in the other
 (:meth:`to_json` / :meth:`from_json`, which rejects unknown keys with a
 did-you-mean hint).  ``backend="wire"`` deploys the spec over party
-worker processes (``repro_torch.net``); ``compress_topk``, a later
-slice, loads and raises ``NotImplementedError`` (ROADMAP queue 1, item
-6) where an entry point would use it.
+worker processes (``repro_torch.net``); ``compress_topk`` runs in the
+simulation and is refused on the wire with the reference's
+``FLSimulation`` ``ValueError`` (by ``make_transport`` too, before a port
+is bound).
 ``kernel_backend`` stays a field for that compatibility; the port
 dispatches by device, so any value but ``None`` raises ``ValueError``.
 """
@@ -34,7 +35,8 @@ import difflib
 
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.fixed_point import FixedPointConfig
-from repro_torch.fl.transport import check_kernel_backend, reject_later
+from repro_torch.fl.transport import (WIRE_TOPK_REFUSED,
+                                      check_kernel_backend)
 
 __all__ = ["ExperimentSpec", "make_transport"]
 
@@ -75,7 +77,7 @@ class ExperimentSpec:
     # -- fixed-point codec (None = the scheme's default codec) ------------
     frac_bits: int | None = None
     clip: float | None = None
-    # -- compression (a later slice: raises where it is used) -------------
+    # -- compression ------------------------------------------------------
     compress_topk: float | None = None
     error_feedback: bool = True
     chunk_elems: int | None = None
@@ -94,7 +96,7 @@ class ExperimentSpec:
     #: not depend on it)
     relay: str = "hub"
     # -- backend ----------------------------------------------------------
-    backend: str = "sim"           # sim | wire (a later slice)
+    backend: str = "sim"           # sim | wire
     #: must stay None in the port (the device picks the path)
     kernel_backend: str | None = None
     #: extra options of the wire backend
@@ -292,9 +294,11 @@ def make_transport(spec: ExperimentSpec, *, net=None, device="cuda",
             "fl.transport.make_transport for raw kwargs)")
     from repro_torch.fl.transport import make_transport as _factory
     if spec.backend == "wire":
-        # top-k is a later slice: refuse it before a port is bound or a
-        # worker spawned (the wire's kwargs have no compression field)
-        reject_later(compress_topk=spec.compress_topk)
+        # the wire has no top-k: refuse it before a port is bound or a
+        # worker spawned, as FLSimulation does (the wire's kwargs have no
+        # compression field, so passing them on would drop it)
+        if spec.compression() is not None:
+            raise ValueError(WIRE_TOPK_REFUSED)
         kw = spec.wire_transport_kwargs()
         n = kw.pop("n")
         if net is not None:

@@ -5,8 +5,7 @@ imports nothing of the reference).  ``Msg_Num`` counts point-to-point
 messages; ``Msg_Size`` is in model elements (``s``) or vote elements
 (``b``).  The counting transports of ``fl.transport`` must equal these
 exactly; the wire's coordinator must equal the per-link byte forms at
-the end.  The top-k forms come with the slice that ports top-k
-compression (ROADMAP queue 1, item 6).
+the end.
 """
 
 from __future__ import annotations
@@ -97,6 +96,60 @@ def summary(p: CostParams) -> dict:
         "reduction_factor": reduction_factor(p),
     }
 
+
+# -- Top-k-sparsified variants of Eqs. 2/4/6 ---------------------------------
+#
+# A top-k upload is k values + k public index words = 2k elements
+# (``compression.compressed_size``).  Legs that carry *sums* of
+# differently-supported sparse updates (P2P partial sums, the committee
+# chain exchange, the broadcast) live on the union support and are
+# counted at the dense size ``s``, so the closed forms equal what the
+# counting transports measure.  Phase I (votes of size b) and the
+# message counts (Eqs. 1/3/5) are unchanged.
+
+def sparsified_s(p: CostParams, ratio: float) -> int:
+    """Elements per sparsified upload: k values + k index words."""
+    return 2 * max(1, int(p.s * ratio))
+
+
+def p2p_msg_size_topk(p: CostParams, ratio: float) -> int:
+    """Eq. 2 with top-k uploads: share leg at 2k, partial sums dense."""
+    return p.n * (p.n - 1) * p.e * (sparsified_s(p, ratio) + p.s)
+
+
+def phase1_msg_size_topk(p: CostParams, ratio: float) -> int:
+    """Eq. 4 under top-k, unchanged: election votes are b-vectors."""
+    return phase1_msg_size(p)
+
+
+def phase2_msg_size_topk(p: CostParams, ratio: float) -> int:
+    """Eq. 6 with top-k uploads (n·m at 2k; exchange and broadcast
+    dense)."""
+    return (p.n * p.m * sparsified_s(p, ratio)
+            + ((p.m - 1) + p.n) * p.s) * p.e
+
+
+def twophase_msg_size_topk(p: CostParams, ratio: float) -> int:
+    """Eq. 8 with top-k uploads (Eq. 4 + sparsified Eq. 6)."""
+    return phase1_msg_size_topk(p, ratio) + phase2_msg_size_topk(p, ratio)
+
+
+def combined_reduction_factor(p: CostParams, ratio: float) -> float:
+    """Compression × two-phase: dense-P2P elements / sparsified
+    two-phase."""
+    return p2p_msg_size(p) / twophase_msg_size_topk(p, ratio)
+
+
+def summary_topk(p: CostParams, ratio: float) -> dict:
+    return {
+        "n": p.n, "m": p.m, "e": p.e, "s": p.s, "b": p.b,
+        "top_k_ratio": ratio,
+        "sparsified_s": sparsified_s(p, ratio),
+        "p2p_msg_size_topk": p2p_msg_size_topk(p, ratio),
+        "phase2_msg_size_topk": phase2_msg_size_topk(p, ratio),
+        "twophase_msg_size_topk": twophase_msg_size_topk(p, ratio),
+        "combined_reduction_factor": combined_reduction_factor(p, ratio),
+    }
 
 # -- Feldman-VSS commitment broadcast (Eq. 5-6 extensions) -------------------
 #

@@ -30,7 +30,7 @@ from repro_torch.kernels import dispatch
 from .cohort import sample_cohort
 from .faults import RoundOutcome, apply_faults
 from .simulation import FLSimulation
-from .transport import check_kernel_backend, reject_later
+from .transport import check_kernel_backend
 
 
 @dataclasses.dataclass
@@ -44,8 +44,9 @@ class FedAvgConfig:
     vote_batch: int = 10
     seed: int = 0
     deadline_s: float | None = None
-    #: top-k sparsification ratio (a later slice of the port: any value
-    #: but None/0 raises)
+    #: top-k sparsification ratio (None/0 = off: the paper's dense
+    #: baseline); per-party error-feedback residuals persist in the
+    #: transport across rounds
     compress_topk: float | None = None
     error_feedback: bool = True
     #: element-chunk size of the streaming aggregation (None = whole
@@ -87,7 +88,6 @@ class FedAvgConfig:
         if self.backend not in ("sim", "wire"):
             raise ValueError(f"unknown backend {self.backend!r}; "
                              "expected 'sim' or 'wire'")
-        reject_later(compress_topk=self.compress_topk)
         check_kernel_backend(self.kernel_backend)
 
     def compression(self) -> CompressionConfig | None:

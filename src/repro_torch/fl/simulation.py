@@ -11,7 +11,9 @@ keyword raises ``TypeError`` with a did-you-mean hint.
 ``backend="wire"`` swaps the two-phase transport for the real
 multi-process deployment (``repro_torch.net.WireTransport``, party
 workers on the simulation's device); use it as a context manager (or
-call ``close()``) so the worker processes are reaped.
+call ``close()``) so the worker processes are reaped.  Top-k
+``compression`` runs in every simulated transport; on the wire it is
+refused with the reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
 
 from .transport import (Network, P2PTransport, PhaseStats, PlainTransport,
-                        Transport, TwoPhaseTransport, check_kernel_backend,
-                        reject_later)
+                        Transport, TwoPhaseTransport, WIRE_TOPK_REFUSED,
+                        check_kernel_backend)
 
 __all__ = ["FLSimulation", "Network", "PhaseStats", "UnknownPartyError"]
 
@@ -78,7 +80,6 @@ class FLSimulation:
         if backend not in ("sim", "wire"):
             raise ValueError(f"unknown backend {backend!r}; expected "
                              "'sim' or 'wire'")
-        reject_later(compression=compression)
         self.device = dispatch.resolve_device(device)
         self.n = n
         self.m = m
@@ -91,30 +92,35 @@ class FLSimulation:
         self.round = 0
         kw = dict(m=m, b=b, scheme=scheme, seed=seed, net=self.net, fp=fp,
                   shamir_degree=shamir_degree, chunk=chunk,
-                  chunk_elems=chunk_elems, device=self.device)
+                  chunk_elems=chunk_elems, compression=compression,
+                  device=self.device)
         self.transports: dict[str, Transport] = {
             "plain": PlainTransport(n, **kw),
             "p2p": P2PTransport(n, **kw),
         }
+        # the malicious-security knobs are two-phase only: commitments
+        # verify committee partial sums, and per-round re-election is the
+        # committee's Phase I
+        two_phase = dict(vss=vss, reelect_each_round=reelect_each_round,
+                         norm_bound=norm_bound, dealer_tamper=dealer_tamper,
+                         cohort=cohort)
         if backend == "wire":
             # the real multi-process deployment of the paper's protocol;
             # the baselines stay in-sim (the wire only speaks two_phase)
+            if compression is not None:
+                # the wire has no top-k; the sim transport's refusals
+                # (VSS with top-k, ...) come first, as in the reference
+                TwoPhaseTransport(n, **two_phase, **kw)
+                raise ValueError(WIRE_TOPK_REFUSED)
             from repro_torch.net import WireTransport
             self.transports["two_phase"] = WireTransport(
                 n, m=m, b=b, scheme=scheme, seed=seed, net=self.net,
                 fp=fp, shamir_degree=shamir_degree,
-                chunk_elems=chunk_elems, vss=vss,
-                reelect_each_round=reelect_each_round,
-                norm_bound=norm_bound, dealer_tamper=dealer_tamper,
-                cohort=cohort, device=self.device, **(wire_kwargs or {}))
+                chunk_elems=chunk_elems, device=self.device, **two_phase,
+                **(wire_kwargs or {}))
         else:
-            # the malicious-security knobs are two-phase only:
-            # commitments verify committee partial sums, and per-round
-            # re-election is the committee's Phase I
             self.transports["two_phase"] = TwoPhaseTransport(
-                n, vss=vss, reelect_each_round=reelect_each_round,
-                norm_bound=norm_bound, dealer_tamper=dealer_tamper,
-                cohort=cohort, **kw)
+                n, **two_phase, **kw)
 
     @property
     def committee(self):

@@ -16,8 +16,9 @@ Counterpart of the counting transports of ``repro/fl/transport.py``:
   multi-process deployment over TCP, with party workers on the device.
 
 The party-side math runs through ``SecureAggregator`` on the
-transport's device.  Knobs of later slices of the port raise
-``NotImplementedError`` naming the slice (``reject_later``).
+transport's device.  ``compression=`` (top-k with per-party error
+feedback, ``core.compression``) sparsifies each upload before it is
+shared; the residuals stay on the transport's device, keyed by party id.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ from torch.profiler import record_function
 from repro_torch.core import committee as committee_mod
 from repro_torch.core import philox, vss
 from repro_torch.core.aggregation import SecureAggregator, _check_chunk_elems
+from repro_torch.core.compression import (CompressionConfig,
+                                          compress_topk_batch,
+                                          compressed_size)
 from repro_torch.core.field import to_field, to_i32, words_like
 from repro_torch.core.fixed_point import FixedPointConfig
 from repro_torch.kernels import dispatch
@@ -42,35 +46,11 @@ from .faults import (DEALER_TAMPER_MODES, POISON_SCALE, TAMPER_FLIP_MASK,
 
 __all__ = ["Network", "P2PTransport", "PhaseStats", "PlainTransport",
            "SPMDTransport", "Transport", "TwoPhaseTransport",
-           "check_kernel_backend", "make_transport", "not_ported",
-           "reject_later"]
+           "check_kernel_backend", "make_transport"]
 
-#: Knobs of the reference that later slices of the port carry over
-#: (ROADMAP.md, queue 1), and the slice each belongs to.
-LATER_SLICES = {
-    "compression": "top-k compression (queue 1, item 6)",
-    "compress_topk": "top-k compression (queue 1, item 6)",
-}
-
-
-def not_ported(what: str, knob: str) -> NotImplementedError:
-    """The error for ``what``, a part of the later slice that ``knob``
-    belongs to."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it belongs to {LATER_SLICES[knob]} "
-        "of the PyTorch port")
-
-
-def reject_later(**knobs) -> None:
-    """Raise ``NotImplementedError`` for a later-slice knob that is set.
-
-    A knob at its default (falsy, or a disabled ``CompressionConfig``)
-    passes.
-    """
-    for name, value in knobs.items():
-        if not value or getattr(value, "enabled", True) is False:
-            continue
-        raise not_ported(f"{name}={value!r}", name)
+#: the reference's refusal of top-k on the wire (``fl/simulation.py``)
+WIRE_TOPK_REFUSED = ("top-k compression is not implemented on the wire "
+                     "backend yet; drop compression= or use backend='sim'")
 
 
 def check_kernel_backend(kernel_backend) -> None:
@@ -179,8 +159,7 @@ class _SimTransport(Transport):
                  fp: FixedPointConfig | None = None,
                  shamir_degree: int | None = None, chunk: int = 2048,
                  chunk_elems: int | None = None, device="cuda",
-                 compression=None):
-        reject_later(compression=compression)
+                 compression: CompressionConfig | None = None):
         self.n = n
         self.m = m
         self.b = b
@@ -192,6 +171,10 @@ class _SimTransport(Transport):
         self.chunk_elems = (None if chunk_elems is None
                             else _check_chunk_elems(chunk_elems))
         self.device = dispatch.resolve_device(device)
+        self.compression = compression
+        #: party id -> row of ``_err_rows`` (each party's top-k residual)
+        self._err_slot: dict[int, int] = {}
+        self._err_rows: torch.Tensor | None = None
         self.net = net if net is not None else Network()
 
     def _as_batch(self, flats) -> torch.Tensor:
@@ -208,6 +191,53 @@ class _SimTransport(Transport):
         if len(ids) != l:
             raise ValueError(f"{l} updates but {len(ids)} party ids")
         return ids
+
+    # -- compression (top-k + error feedback) -----------------------------
+
+    def _compress(self, flats, ids):
+        """Sparsify the live parties' updates; returns ``(dense flats,
+        wire size)``.
+
+        The wire size is what one upload costs in elements (``2k``: k
+        values and k index words); partial sums and broadcasts stay at
+        the dense ``s`` (``costmodel.phase2_msg_size_topk``).  Each
+        party's residual changes here, so callers run every check that
+        can raise first: a refused round must leave the residuals as it
+        leaves the counters.
+        """
+        s = int(flats.shape[1])
+        if self.compression is None or not self.compression.enabled:
+            return flats, s
+        rows = self._err_index(ids, s)
+        dense, new_err = compress_topk_batch(flats, self.compression,
+                                             self._err_rows[rows])
+        self._err_rows[rows] = new_err
+        return dense, compressed_size(s, self.compression)
+
+    def _err_index(self, ids, s: int) -> torch.Tensor:
+        """Rows of ``_err_rows`` for ``ids``; a party seen for the first
+        time gets a zero row."""
+        fresh = [i for i in dict.fromkeys(ids) if i not in self._err_slot]
+        if self._err_rows is not None and self._err_rows.shape[1] != s:
+            raise ValueError(f"updates of {s} elements; the residuals "
+                             f"hold {self._err_rows.shape[1]}")
+        if fresh:
+            base = 0 if self._err_rows is None else self._err_rows.shape[0]
+            zeros = torch.zeros((len(fresh), s), dtype=torch.float32,
+                                device=self.device)
+            self._err_rows = zeros if self._err_rows is None else \
+                torch.cat([self._err_rows, zeros])
+            self._err_slot.update((i, base + j) for j, i in enumerate(fresh))
+        return torch.tensor([self._err_slot[i] for i in ids],
+                            dtype=torch.int64, device=self.device)
+
+    def error_states(self, party_ids) -> torch.Tensor:
+        """The top-k residuals ``[l, s]`` of ``party_ids`` (the reference's
+        ``_err_state`` rows); a party that never uploaded has none."""
+        missing = [i for i in party_ids if int(i) not in self._err_slot]
+        if missing:
+            raise KeyError(f"parties {missing} have no residual yet")
+        return self._err_rows[[self._err_slot[int(i)] for i in party_ids]]
 
     def _aggregator(self, m: int) -> SecureAggregator:
         return SecureAggregator(scheme=self.scheme, m=m, fp=self.fp,
@@ -239,10 +269,11 @@ class PlainTransport(_SimTransport):
 
     def aggregate(self, flats, party_ids=None, *, round_index: int = 0):
         flats = self._as_batch(flats)
-        l, s = int(flats.shape[0]), int(flats.shape[1])
-        self._ids(party_ids, l)
-        # every live party sends its update to every other live party
-        self.net.send_batch(l * (l - 1), s, "plain")
+        l = int(flats.shape[0])
+        ids = self._ids(party_ids, l)
+        flats, wire_s = self._compress(flats, ids)
+        # every live party sends its (sparsified) update to every other
+        self.net.send_batch(l * (l - 1), wire_s, "plain")
         return flats.mean(dim=0)
 
 
@@ -257,9 +288,12 @@ class P2PTransport(_SimTransport):
         l, s = int(flats.shape[0]), int(flats.shape[1])
         ids = self._ids(party_ids, l)
         agg = self._aggregator(l)
+        # every check that can raise comes before _compress
         agg.fp.validate_for_parties(l)
-        self.net.send_batch(l * (l - 1), s, "p2p")  # shares V(i, j)
-        self.net.send_batch(l * (l - 1), s, "p2p")  # partial sums S(i)
+        flats, wire_s = self._compress(flats, ids)
+        self.net.send_batch(l * (l - 1), wire_s, "p2p")  # shares V(i, j)
+        # partial sums S(i) live on the union support: dense size s
+        self.net.send_batch(l * (l - 1), s, "p2p")
         return self._secure_mean(agg, flats, ids, round_index)
 
 
@@ -322,6 +356,11 @@ class TwoPhaseTransport(_SimTransport):
                 "verifiable secret sharing needs the Shamir scheme "
                 "(commitments verify polynomial evaluations); "
                 f"got scheme={self.scheme!r}")
+        if vss and self.compression is not None \
+                and self.compression.enabled:
+            raise ValueError(
+                "vss=True with top-k compression is not supported yet "
+                "— commitments would bind the densified update")
         if norm_bound is not None:
             norm_bound = float(norm_bound)
             if norm_bound <= 0:
@@ -465,14 +504,17 @@ class TwoPhaseTransport(_SimTransport):
         # a poisoning dealer scales its update before encoding: its
         # shares and commitments are honest ones of the poisoned value
         flats = self._poison_flats(flats, ids, round_index)
-        # 1) every live party uploads one share to each live member
-        self.net.send_batch(l * m_live, s, "phase2_upload")
+        flats, wire_s = self._compress(flats, ids)
+        # 1) every live party uploads one (sparsified) share to each live
+        #    member: the only leg top-k shrinks
+        self.net.send_batch(l * m_live, wire_s, "phase2_upload")
         if self.vss:
             # 1b) ... and its Feldman commitments, (degree+1) x 2 limbs
             #     per element (costmodel.phase2_commit_*)
             self.net.send_batch(l * m_live, (self.degree + 1) * 2 * s,
                                 "phase2_commit")
-        # 2) members chain-exchange partial sums (m−1, Eq. 5 middle term)
+        # 2) members chain-exchange partial sums (m−1, Eq. 5 middle term),
+        #    on the union support of the sparse uploads: dense size s
         self.net.send_batch(m_live - 1, s, "phase2_exchange")
         if self.norm_bound is not None:
             # 2b) each non-final live member forwards its per-dealer

@@ -1,11 +1,33 @@
-"""The secure-FL train step (replicated layout), prefill and serve step.
+"""The secure-FL train step (replicated and MPC-FSDP layouts), prefill
+and serve step.
 
-Counterpart of ``repro/launch/steps.py::make_train_step`` (:253) with
-``fsdp=False``: every party holds the whole model, and per step
+Counterpart of ``repro/launch/steps.py::make_train_step`` (:253).  Per
+step and party:
 
   this party's rows of the global batch -> fwd/bwd -> two-phase MPC
-  gradient aggregation, leaf by leaf (``fl.spmd.secure_aggregate_tree``)
-  -> AdamW -> identical parameters on every party.
+  gradient aggregation -> AdamW -> identical parameters on every party.
+
+Two parameter layouts, as the reference's:
+
+* **replicated** (the paper's FL): every party holds the whole model;
+  the gradients are securely averaged leaf by leaf
+  (``fl.spmd.secure_aggregate_tree``);
+* **MPC-FSDP** (``fsdp=True``; ``fsdp=None`` picks it where the fp32
+  parameters and Adam moments pass 60 % of the reference chip's 16 GB,
+  ``launch.sharding.needs_fsdp``): each party holds its shards of the
+  parameters and moments; each layer is gathered on entry and the
+  gather's backward is a secure reduce-scatter of shares
+  (``launch/fsdp.py``).  The leaves the layout keeps whole (norm scales,
+  biases) are averaged after backward as in the replicated layout, and
+  the clip's global norm is the whole gradient's: the reference leaves
+  both per party (ROADMAP queue 3, finding 9); in a world of one the
+  two agree.
+
+``compress_topk`` sparsifies each party's gradient (or pseudo-gradient)
+leaf by leaf before the aggregation, keeping the unsent mass in
+``opt_state["ef"]``: this party's ``[1, *leaf]`` row of the reference's
+``[n_party, *leaf]`` residuals (``init_error_feedback``, ``ef_row``,
+``join_ef_rows``).
 
 Each party is one rank of the process group (``launch.mesh``); the
 reference's ``shard_map`` over the party axes becomes each rank taking
@@ -18,10 +40,6 @@ reference's (:432-470) without ``jit`` or a mesh: plain callables on one
 device, run without autograd.  ``attn_impl`` reaches every block: the
 attention rule and the scan rules of the SSM and rec blocks
 (``models/ssm.py``, ``models/hybrid.py``).
-
-Later slices: MPC-FSDP (``fsdp=True``, or ``fsdp=None`` resolving to it
-for a model whose fp32 state does not fit 60 % of 16 GB), top-k
-compression and the enc-dec family raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,34 +49,22 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from repro_torch.core.compression import (CompressionConfig,
+                                          compress_topk_batch)
 from repro_torch.core.tree import flatten_with_path, tree_map, unflatten
 from repro_torch.fl.spmd import (party_count, party_index,
                                  secure_aggregate_tree)
 from repro_torch.kernels import dispatch
+from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import get_api
 from repro_torch.models.transformer import cache_batch_and_length
 from repro_torch.optim import AdamWConfig, adamw_update
+from .fsdp import gather_tree, make_fsdp_transforms, party_dims, shard_tree
+from .sharding import needs_fsdp
 
 PROTOCOLS = ("two_phase", "p2p", "plain")
 AGG_MODES = ("psum", "reduce_scatter")
-FSDP_LATER = ("MPC-FSDP is not ported yet: it belongs to ROADMAP queue 1, "
-              "item 5 of the PyTorch port (the replicated layout runs "
-              "models whose fp32 parameters and Adam moments fit 60 % of "
-              "16 GB, such as qwen1.5-0.5b)")
-TOPK_LATER = ("compress_topk is not ported yet: it belongs to top-k "
-              "compression (ROADMAP queue 1, item 6) of the PyTorch port")
-
-
-#: device memory of the reference's chip, which its layout rule assumes
-REFERENCE_HBM_BYTES = 16e9
-
-
-def needs_fsdp(cfg: ArchConfig) -> bool:
-    """The reference's layout rule (``launch/sharding.py:115``) at tensor
-    parallelism 1: replicated fp32 params + Adam moments must fit 60 %
-    of the reference chip's 16 GB."""
-    return cfg.param_count() * (4 + 8) > 0.6 * REFERENCE_HBM_BYTES
 
 
 def _psum_mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -68,6 +74,53 @@ def _psum_mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return x / n
 
 
+# ---------------------------------------------------------------------------
+# top-k gradient compression (per-party error feedback in the opt state)
+# ---------------------------------------------------------------------------
+
+def init_error_feedback(params, n_party: int = 1):
+    """Zero residuals: ``n_party`` float32 rows per leaf (the reference's
+    ``[n_party, *leaf]``).  A rank of the port keeps its own row:
+    ``n_party=1``, or ``ef_row`` of the reference's."""
+    return tree_map(lambda p: torch.zeros((n_party,) + tuple(p.shape),
+                                          dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def ef_row(ef, pid: int):
+    """Party ``pid``'s ``[1, *leaf]`` rows of ``[n_party, *leaf]``
+    residuals."""
+    return tree_map(lambda e: e[pid:pid + 1].clone(), ef)
+
+
+def join_ef_rows(rows: list):
+    """The ``[n_party, *leaf]`` residuals of the parties' rows, in party
+    order."""
+    return tree_map(lambda *es: torch.cat(es), rows[0], *rows[1:])
+
+
+def _compress_tree_topk(grads, ef, ratio: float):
+    """Leaf-wise top-k + error feedback of a party's gradient tree; ``ef``
+    leaves are the party's ``[1, *leaf]`` rows.  Returns the densified
+    tree (what the secure aggregation shares) and the new residuals."""
+    ccfg = CompressionConfig(enabled=True, top_k_ratio=ratio,
+                             error_feedback=True)
+    e_by_path = dict(flatten_with_path(ef))
+    dense, new_ef = [], []
+    paths = []
+    for path, g in flatten_with_path(grads):
+        e = e_by_path[path]
+        d, ne = compress_topk_batch(g.reshape(1, -1), ccfg, e.reshape(1, -1))
+        paths.append(path)
+        dense.append(d.reshape(g.shape).to(g.dtype))
+        new_ef.append(ne.reshape(e.shape))
+    return unflatten(paths, dense), unflatten(paths, new_ef)
+
+
+# ---------------------------------------------------------------------------
+# train_step factory
+# ---------------------------------------------------------------------------
+
 class TrainStep:
     """``step(model, opt_state, step_idx, batch) -> (model, opt_state,
     loss)``.
@@ -75,11 +128,14 @@ class TrainStep:
     ``batch`` holds the global ``tokens``/``labels`` ``[B, S]`` (numpy
     or tensors); rank ``p`` of ``n`` trains on rows ``[p·B/n, (p+1)·B/n)``.
     The model's parameters and the moments are updated in place.
-    ``loss`` is the mean over parties of each party's mean NLL.
+    ``loss`` is the mean over parties of each party's mean NLL.  Under
+    MPC-FSDP the model holds this party's shards (``shard_model``) and
+    the moments are the shards'.
 
     ``observe``: if set, ``observe(grads, aggregated)`` is called with
-    the party's gradient tree (or pseudo-gradient) and its aggregate,
-    before the optimizer — for checks of the aggregation.
+    the party's gradient tree (or pseudo-gradient; densified under
+    top-k; under MPC-FSDP the split leaves' are already aggregated) and
+    its aggregate, before the optimizer — for checks of the aggregation.
     """
 
     def __init__(self, cfg: ArchConfig, *, protocol: str = "two_phase",
@@ -88,15 +144,23 @@ class TrainStep:
                  fsdp: bool | None = None, opt: AdamWConfig | None = None,
                  attn_impl: str = "auto", local_steps: int = 1,
                  inner_lr: float = 0.02, compress_topk: float | None = None,
-                 chunk_elems: int | None = None, group=None,
-                 device="cuda"):
-        self.api = get_api(cfg)
+                 chunk_elems: int | None = None, gather_dtype=None,
+                 group=None, device="cuda"):
         if fsdp is None:
             fsdp = needs_fsdp(cfg)
-        if fsdp:
-            raise NotImplementedError(FSDP_LATER)
-        if compress_topk:
-            raise NotImplementedError(TOPK_LATER)
+        if fsdp and cfg.enc_dec:
+            raise NotImplementedError("MPC-FSDP not wired for enc-dec archs")
+        if fsdp and local_steps > 1:
+            raise NotImplementedError("local_steps requires replicated "
+                                      "params")
+        if fsdp and compress_topk:
+            raise NotImplementedError(
+                "compress_topk requires replicated params (FSDP aggregates "
+                "inside backward, before compression could apply)")
+        if compress_topk is not None and not 0.0 <= compress_topk <= 1.0:
+            raise ValueError(
+                f"compress_topk={compress_topk} must be in [0, 1]")
+        self.api = get_api(cfg)
         if protocol not in PROTOCOLS:
             raise ValueError(f"unknown protocol {protocol!r}; expected one "
                              f"of {PROTOCOLS}")
@@ -109,18 +173,49 @@ class TrainStep:
         self.m = m
         self.agg_mode = agg_mode
         self.seed = seed
+        self.fsdp = fsdp
         self.opt = opt or AdamWConfig()
         self.attn_impl = attn_impl
         self.local_steps = local_steps
         self.inner_lr = inner_lr
+        self.compress_topk = compress_topk or None
         self.chunk_elems = chunk_elems
+        self.gather_dtype = gather_dtype
         self.group = group
         self.device = dispatch.resolve_device(device)
         self.observe = None
+        self._dims: dict | None = None
 
     @property
     def n_party(self) -> int:
         return party_count(self.group)
+
+    # -- MPC-FSDP layout ----------------------------------------------------
+
+    @property
+    def dims(self) -> dict:
+        """``{leaf path: dim split among the parties, or None}``."""
+        if self._dims is None:
+            shapes = {p: tuple(leaf.shape) for p, leaf in flatten_with_path(
+                transformer.init(self.cfg, device="meta").params())}
+            self._dims = party_dims(shapes, self.n_party)
+        return self._dims
+
+    def shard_model(self, model):
+        """The model holding this party's shards of ``model``'s leaves
+        (the whole leaves where the layout keeps them whole)."""
+        with torch.no_grad():
+            tree = shard_tree(model.params(), self.dims, self.group)
+        return transformer.Transformer(self.cfg, tree)
+
+    def full_params(self, tree):
+        """The whole leaves of a tree of this layout's shards (parameters
+        or moments), gathered from every party; the tree itself in the
+        replicated layout."""
+        if not self.fsdp:
+            return tree
+        with torch.no_grad():
+            return gather_tree(tree, self.dims, self.group)
 
     def local_batch(self, batch) -> dict:
         """This party's rows of the global batch, on the step's device."""
@@ -141,11 +236,19 @@ class TrainStep:
         return out
 
     def _grad(self, params, batch):
-        leaves = [leaf for _, leaf in flatten_with_path(params)]
-        loss = self.api.loss_fn(params, batch, self.cfg, impl=self.attn_impl)
-        grads = torch.autograd.grad(loss, leaves)
-        paths = [p for p, _ in flatten_with_path(params)]
-        return loss.detach(), unflatten(paths, grads)
+        flat = flatten_with_path(params)
+        if self.fsdp:
+            layer_transform, top_gather = make_fsdp_transforms(
+                self.dims, m=self.m, seed=self.seed,
+                gather_dtype=self.gather_dtype, group=self.group)
+            loss = self.api.loss_fn(top_gather(params), batch, self.cfg,
+                                    impl=self.attn_impl,
+                                    layer_transform=layer_transform)
+        else:
+            loss = self.api.loss_fn(params, batch, self.cfg,
+                                    impl=self.attn_impl)
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in flat])
+        return loss.detach(), unflatten([p for p, _ in flat], grads)
 
     def _aggregate(self, tree, step_idx: int):
         n = self.n_party
@@ -158,22 +261,56 @@ class TrainStep:
             seed=self.seed, round_index=int(step_idx), mode=mode,
             chunk_elems=self.chunk_elems)
 
+    def _aggregate_fsdp(self, grads, step_idx: int):
+        """The split leaves' gradients are aggregated already (in
+        backward); the whole leaves' are aggregated here, as in the
+        replicated layout.  Returns the aggregate and the whole
+        gradient's global norm."""
+        flat = flatten_with_path(grads)
+        whole = [(p, g) for p, g in flat if self.dims[p] is None]
+        agg = dict(flatten_with_path(self._aggregate(
+            unflatten([p for p, _ in whole], [g for _, g in whole]),
+            step_idx))) if whole else {}
+        out = [agg.get(p, g) for p, g in flat]
+        # the clip's norm over the whole gradient: a split leaf's squares
+        # summed over the parties (its shards), in the leaves' order
+        sq = torch.stack([torch.sum(torch.square(g.float())) for g in out])
+        split = torch.tensor([self.dims[p] is not None for p, _ in flat],
+                             device=sq.device)
+        if self.n_party > 1:
+            parts = torch.where(split, sq, torch.zeros_like(sq))
+            dist.all_reduce(parts, group=self.group)
+            sq = torch.where(split, parts, sq)
+        return unflatten([p for p, _ in flat], out), torch.sqrt(torch.sum(sq))
+
     def __call__(self, model, opt_state, step_idx: int, batch):
         local = self.local_batch(batch)
         params = model.params()
+        ef = opt_state.get("ef") if self.compress_topk else None
+        moments = {k: v for k, v in opt_state.items() if k != "ef"}
         with record_function("fwd_bwd"):
             if self.local_steps <= 1:
                 loss, grads = self._grad(params, local)
             else:
                 loss, grads = self._local_iterations(params, local)
+            if self.compress_topk:
+                grads, ef = _compress_tree_topk(grads, ef,
+                                                self.compress_topk)
+        norm = None
         with record_function("secure_aggregate"):
-            agg = self._aggregate(grads, step_idx)
+            if self.fsdp:
+                agg, norm = self._aggregate_fsdp(grads, step_idx)
+            else:
+                agg = self._aggregate(grads, step_idx)
         if self.observe is not None:
             self.observe(grads, agg)
         del grads
         loss = _psum_mean(loss, self.group, self.n_party)
         with record_function("adamw_update"):
-            adamw_update(agg, opt_state, params, int(step_idx), self.opt)
+            adamw_update(agg, moments, params, int(step_idx), self.opt,
+                         norm=norm)
+        if ef is not None:
+            opt_state["ef"] = ef
         return model, opt_state, loss
 
     def _local_iterations(self, params, local):

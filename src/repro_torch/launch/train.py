@@ -1,25 +1,31 @@
 """End-to-end federated LM trainer (the command-line entry point).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
-        --steps 50 --protocol two_phase
+        --smoke --steps 10 --device cpu --compress-topk 0.01 \
+        --ckpt-dir ckpt
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen1.5-0.5b --smoke --steps 10 --device cpu
 
 Counterpart of ``repro/launch/train.py``, with its flags and defaults:
 per-party fwd/bwd -> two-phase MPC gradient aggregation -> AdamW, on
-the card unless ``--device cpu``.  The parties are the ranks that
-``torchrun`` starts (a world of one without it); each rank trains on its
-rows of the global batch.  The backend follows the rule of
-``launch.mesh.choose_backend`` and is printed.  The reference's
-defaults include ``--arch tinyllama-1.1b``, whose fp32 state takes the
-MPC-FSDP layout, a later slice: the port raises for it, and runs
-qwen1.5-0.5b (and the smoke configs) in the replicated layout.
-``--spec`` takes an ``ExperimentSpec`` (``repro_torch.api``) as a JSON
-file or inline JSON and sets the protocol, scheme, committee, seed,
-compress-topk and chunk-elems from it, as the reference does; the model
-and loop flags stay on the command line.  Checkpointing
-(``--ckpt-dir``), ``--production-mesh``, ``--tp`` above 1 and
-``--compress-topk`` raise ``NotImplementedError``.
+the card unless ``--device cpu``, with checkpoint/restart.  The parties
+are the ranks that ``torchrun`` starts (a world of one without it);
+each rank trains on its rows of the global batch.  The backend follows
+the rule of ``launch.mesh.choose_backend`` and is printed.  The layout
+is the reference's rule (``launch.sharding.needs_fsdp``): the default
+``--arch tinyllama-1.1b`` takes MPC-FSDP, qwen1.5-0.5b and the smoke
+configs the replicated layout.  ``--compress-topk`` sparsifies each
+party's gradient with error feedback (residuals in the optimizer state,
+saved with it).  ``--ckpt-dir`` saves every ``--ckpt-every`` steps and
+at the end, in the reference's layout, and resumes from the newest
+checkpoint there.  ``--spec`` takes an ``ExperimentSpec``
+(``repro_torch.api``) as a JSON file or inline JSON and sets the
+protocol, scheme, committee, seed, compress-topk and chunk-elems from
+it, as the reference does; the model and loop flags stay on the command
+line.  ``--tp`` above 1 and ``--production-mesh`` raise
+``NotImplementedError``: the port has no model axis (ROADMAP queue 1,
+item 11), and the pod meshes are TPU meshes.
 """
 
 from __future__ import annotations
@@ -29,15 +35,23 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
+from repro_torch.core.tree import flatten_with_path, tree_map
 from repro_torch.data import lm_batch
+from repro_torch.fl.spmd import party_index
+from repro_torch.launch.fsdp import all_gather_dim, shard_tree
 from repro_torch.launch.mesh import init_from_env
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import (ef_row, init_error_feedback,
+                                      make_train_step)
 from repro_torch.models.registry import get_api
 from repro_torch.optim import AdamWConfig, adamw_init
 
-CKPT_LATER = ("--ckpt-dir is not ported yet: checkpointing belongs to "
-              "ROADMAP queue 1, item 6 of the PyTorch port")
+TP_LATER = ("--tp {tp} is not ported yet: the port has no model axis, and "
+            "tensor parallelism belongs to ROADMAP queue 1, item 11")
+POD_MESH = ("--production-mesh builds the reference's TPU pod meshes "
+            "(16x16, 2x16x16), which have no counterpart on the port's "
+            "cards: each party is one process (ROADMAP queue 1, item 11)")
 
 
 def parse_args(argv=None):
@@ -56,8 +70,9 @@ def parse_args(argv=None):
                     choices=["psum", "reduce_scatter"])
     ap.add_argument("--committee", type=int, default=3)
     ap.add_argument("--compress-topk", type=float, default=0.0,
-                    help="top-k gradient sparsification ratio (a later "
-                         "slice of the port: any value but 0 raises)")
+                    help="top-k gradient sparsification ratio before "
+                         "secure aggregation (0 = off, dense baseline); "
+                         "error-feedback residuals ride in the opt state")
     ap.add_argument("--chunk-elems", type=int, default=0,
                     help="element-chunk cap for the per-leaf secure "
                          "aggregation share stack (0 = whole leaf)")
@@ -95,21 +110,51 @@ def apply_spec(args) -> None:
     args.chunk_elems = spec.chunk_elems or 0
 
 
+def _state(step_fn, model, opt_state) -> dict:
+    """The checkpoint tree, as the reference saves it: whole parameters
+    and moments, and every party's residual row (``[n_party, *leaf]``),
+    gathered from the parties."""
+    opt = {k: step_fn.full_params(opt_state[k]) for k in ("m", "v")}
+    if "ef" in opt_state:
+        opt["ef"] = tree_map(lambda e: all_gather_dim(e, 0, step_fn.group),
+                            opt_state["ef"])
+    return {"params": step_fn.full_params(model.params()), "opt": opt}
+
+
+def _load_state(step_fn, model, opt_state, state) -> None:
+    """Copy a restored checkpoint tree into this party's parameters,
+    moments and residual row (in place)."""
+    pid = party_index(step_fn.group)
+    dims = step_fn.dims if step_fn.fsdp else None
+
+    def mine(tree):
+        return shard_tree(tree, dims, step_fn.group) if dims else tree
+
+    pairs = [(model.params(), mine(state["params"]))]
+    pairs += [(opt_state[k], mine(state["opt"][k])) for k in ("m", "v")]
+    if "ef" in opt_state:
+        pairs.append((opt_state["ef"], ef_row(state["opt"]["ef"], pid)))
+    with torch.no_grad():
+        for dst, src in pairs:
+            got = dict(flatten_with_path(src))
+            for path, leaf in flatten_with_path(dst):
+                leaf.copy_(got[path])
+
+
 def run(args, observe=None) -> dict:
     """Train as ``args`` say.  Returns the losses, each step's host wall
-    seconds (up to its loss on the host), the model, the optimizer
-    state, the party facts and the step.
+    seconds (up to its loss on the host), the model (this party's shards
+    under MPC-FSDP), the optimizer state, the party facts, the step and
+    the first step run (after a resume, the one after the checkpoint).
 
     ``observe`` is handed to the step (``TrainStep.observe``).
     """
-    if args.ckpt_dir:
-        raise NotImplementedError(CKPT_LATER)
     if args.spec:
         apply_spec(args)
-    if args.production_mesh or args.tp != 1:
-        raise NotImplementedError(
-            "the port has no tensor parallelism and no pod mesh: each party "
-            "is one process (--tp 1)")
+    if args.tp != 1:
+        raise NotImplementedError(TP_LATER.format(tp=args.tp))
+    if args.production_mesh:
+        raise NotImplementedError(POD_MESH)
     cfg = get_config(args.arch, smoke=args.smoke)
     api = get_api(cfg)
     step_fn = make_train_step(
@@ -125,18 +170,38 @@ def run(args, observe=None) -> dict:
     say = print if party["rank"] == 0 else (lambda *a, **k: None)
     say(f"parties={n_party} backend={party['backend'] or 'none'} "
         f"device={party['device']} arch={cfg.name} "
-        f"protocol={args.protocol}", flush=True)
+        f"protocol={args.protocol} "
+        f"layout={'mpc_fsdp' if step_fn.fsdp else 'replicated'}",
+        flush=True)
 
     b, s = args.batch, args.seq
     if b % n_party:
         raise ValueError(f"--batch {b} does not split among {n_party} "
                          "parties")
     model = api.init(cfg, seed=args.seed, device=party["device"])
+    if step_fn.fsdp:
+        model = step_fn.shard_model(model)
     opt_state = adamw_init(model.params())
+    if args.compress_topk:
+        # this party's row of the reference's [n_party, *leaf] residuals
+        opt_state["ef"] = init_error_feedback(model.params(), 1)
+    start = 0
+    ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    if ck and ck.latest_step() is not None:
+        state, start = ck.restore(_state(step_fn, model, opt_state))
+        _load_state(step_fn, model, opt_state, state)
+        del state
+        start += 1
+        say(f"resumed from step {start - 1}", flush=True)
+
+    def save(i):
+        state = _state(step_fn, model, opt_state)
+        if party["rank"] == 0:
+            ck.save(i, state)
 
     losses, walls = [], []
     t0 = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         toks, labels = lm_batch(cfg.vocab, b, s, seed=args.seed, party=0,
                                 step=i)
         t_step = time.perf_counter()
@@ -147,13 +212,18 @@ def run(args, observe=None) -> dict:
         walls.append(time.perf_counter() - t_step)
         if i % args.log_every == 0 or i == args.steps - 1:
             dt = time.perf_counter() - t0
-            tput = b * s * (i + 1) / max(dt, 1e-9)
+            tput = b * s * (i - start + 1) / max(dt, 1e-9)
             say(f"step {i:5d} loss {losses[-1]:.4f} "
                 f"({tput_fmt(tput)} tok/s)", flush=True)
+        if ck and args.ckpt_every and i and i % args.ckpt_every == 0:
+            save(i)
+    if ck:
+        save(args.steps - 1)
     if losses:
         say("done; final loss", losses[-1])
     return {"losses": losses, "step_wall_s": walls, "model": model,
-            "opt_state": opt_state, "party": party, "step_fn": step_fn}
+            "opt_state": opt_state, "party": party, "step_fn": step_fn,
+            "start": start}
 
 
 def tput_fmt(x: float) -> str:

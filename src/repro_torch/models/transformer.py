@@ -18,8 +18,12 @@ and serving entry points.
   falcon-mamba-7b, 72 for recurrentgemma-9b), with the same key paths
   and element order, and the secure aggregation's per-leaf seeds
   (``fl.spmd.leaf_seed_tag``) and Philox streams are the reference's.
-* ``loss_fn(params, batch, cfg)`` — next-token NLL over a nested dict of
-  tensors (``model.params()``, or detached copies for local steps).
+* ``loss_fn(params, batch, cfg, layer_transform=None)`` — next-token
+  NLL over a nested dict of tensors (``model.params()``, or detached
+  copies for local steps); ``layer_transform`` is the MPC-FSDP hook,
+  applied to each layer group's parameters inside the layer's body
+  (``launch/fsdp.py``).  A hybrid's tail layers are gathered with the
+  top-level leaves instead (``top_gather``).
 * ``from_reference`` / ``to_reference`` — the reference's parameter
   tree, as numpy arrays keyed by its leaf paths, into and out of the
   port's model.
@@ -345,7 +349,13 @@ def _schema_paths(cfg: ArchConfig):
 # Forward (full sequence) + loss
 # ---------------------------------------------------------------------------
 
-def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
+def _run_stack(params, x, cfg: ArchConfig, positions, impl: str,
+               layer_transform=None):
+    """``layer_transform(group_params, group_index) -> group_params`` lets
+    the trainer interpose per-layer parameter movement (the MPC-FSDP
+    all-gather whose backward is a secure reduce-scatter).  It runs
+    inside the layer's body, so under ``remat`` backward recomputes it
+    with the layer, as under the reference's ``jax.checkpoint``."""
     group_kinds, n_groups, tail_kinds = stack_plan(cfg)
     flat = flatten_with_path(params["layers"])
     paths = [p for p, _ in flat]
@@ -354,25 +364,28 @@ def _run_stack(params, x, cfg: ArchConfig, positions, impl: str):
         raise ValueError(f"{len(per_layer)} stacked layers, expected "
                          f"{n_groups}")
 
-    def group_body(xc, *layer_leaves):
+    def group_body(xc, gidx, *layer_leaves):
         gp = unflatten(paths, layer_leaves)
+        if layer_transform is not None:
+            gp = layer_transform(gp, gidx)
         for i, kind in enumerate(group_kinds):
             xc = block_apply(gp[f"b{i}_{kind}"], xc, cfg, positions, kind,
                              impl=impl)
         return xc
 
-    for layer_leaves in per_layer:
+    for gidx, layer_leaves in enumerate(per_layer):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(group_body, x, *layer_leaves,
+            x = checkpoint(group_body, x, gidx, *layer_leaves,
                            use_reentrant=False)
         else:
-            x = group_body(x, *layer_leaves)
+            x = group_body(x, gidx, *layer_leaves)
     for tp, kind in zip(params.get("tail", []), tail_kinds):
         x = block_apply(tp, x, cfg, positions, kind, impl=impl)
     return apply_norm(cfg, params["final_norm"], x)
 
 
-def forward_hidden(params, batch, cfg: ArchConfig, impl: str = "auto"):
+def forward_hidden(params, batch, cfg: ArchConfig, impl: str = "auto",
+                   layer_transform=None):
     check_family(cfg)
     cd = dtype_of(cfg, "compute_dtype")
     x = embed(params["embed"], batch["tokens"], cd)
@@ -381,7 +394,8 @@ def forward_hidden(params, batch, cfg: ArchConfig, impl: str = "auto"):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    return _run_stack(params, x, cfg, positions, impl)
+    return _run_stack(params, x, cfg, positions, impl,
+                      layer_transform=layer_transform)
 
 
 def lm_head_weight(params, cfg: ArchConfig):
@@ -390,9 +404,11 @@ def lm_head_weight(params, cfg: ArchConfig):
     return params["lm_head"]["w"]
 
 
-def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto"):
+def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto",
+            layer_transform=None):
     """Mean next-token NLL.  batch: tokens ``[B,S]``, labels ``[B,S]``."""
-    h = forward_hidden(params, batch, cfg, impl=impl)
+    h = forward_hidden(params, batch, cfg, impl=impl,
+                       layer_transform=layer_transform)
     w = lm_head_weight(params, cfg)
     return chunked_softmax_xent(h, w, batch["labels"],
                                 label_mask=batch.get("label_mask"))

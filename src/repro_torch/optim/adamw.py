@@ -33,9 +33,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """``(grads * min(1, max_norm / max(norm, 1e-12)), norm)``, float32."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``(grads * min(1, max_norm / max(norm, 1e-12)), norm)``, float32.
+
+    ``norm``: the global norm when ``grads`` holds only a part of the
+    gradient (a party's shards under MPC-FSDP); default their own."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
@@ -48,9 +52,11 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, step: int, cfg: AdamWConfig):
-    """One AdamW step at ``step`` (0-based); updates in place."""
-    grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+def adamw_update(grads, state, params, step: int, cfg: AdamWConfig,
+                 norm=None):
+    """One AdamW step at ``step`` (0-based); updates in place.  ``norm``
+    as in ``clip_by_global_norm``."""
+    grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm=norm)
     # the bias corrections in float32 on the host, then as 0-d tensors
     # filled on the parameters' device: an IEEE division by a tensor (a
     # CUDA tensor divided by a Python float is a reciprocal multiply),

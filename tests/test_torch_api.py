@@ -9,9 +9,10 @@
   by field; every entry point of the port takes a spec;
 * the deprecated ``FedAvgConfig.agg_kwargs`` warns
   ``ReproDeprecationWarning`` and gives the typed path's bits;
-* top-k compression raises ``NotImplementedError`` naming ROADMAP queue
-  1, item 6; the wire backend (item 8, ported in slice 10) builds the
-  reference's ``WireConfig`` and transport keywords and constructs;
+* top-k compression (item 6, part A, ported in slice 11) reaches the
+  transports as the reference's ``CompressionConfig``; the wire backend
+  (item 8, ported in slice 10) builds the reference's ``WireConfig`` and
+  transport keywords and constructs;
 * ``launch.train --spec`` (inline JSON and a file) at smoke size on the
   CPU.
 """
@@ -184,22 +185,28 @@ def test_agg_kwargs_shim_warns_and_matches_the_typed_path_bitwise():
     "flsim_topk", "make_transport_topk",
 ])
 def test_wire_and_topk_paths_raise_naming_their_items(case):
-    """Top-k raises naming item 6.  The wire cases check the ported wire
-    path instead (item 8, slice 10): each builds what the reference's
-    builds, and no wire entry raises naming item 8."""
+    """The wire cases check the ported wire path (item 8, slice 10) and
+    the top-k cases the ported compression (item 6, part A, slice 11):
+    each builds what the reference's builds, and none raises naming its
+    item."""
     if case.endswith("wire") or case.startswith("wire"):
         _check_wire_case(case)
         return
-    topk = api.ExperimentSpec(n=4, compress_topk=0.1)
-    call, item = {
-        "fedavg_topk": (topk.fedavg_config, 6),
-        "flsim_topk": (lambda: FLSimulation(topk, device="cpu"), 6),
-        "make_transport_topk": (lambda: api.make_transport(
-            topk, device="cpu"), 6),
-    }[case]
-    with pytest.raises(NotImplementedError,
-                       match=rf"not ported yet.*item {item}\)"):
-        call()
+    kw = dict(n=4, compress_topk=0.1, error_feedback=False)
+    topk, ref = api.ExperimentSpec(**kw), j_api.ExperimentSpec(**kw)
+    want = dataclasses.astuple(ref.compression())
+    if case == "fedavg_topk":
+        cfg = topk.fedavg_config()
+        assert dataclasses.astuple(cfg.compression()) == want
+        return
+    if case == "flsim_topk":
+        transports = FLSimulation(topk, device="cpu").transports.values()
+    else:
+        transports = [api.make_transport(topk, device="cpu")]
+    for tr in transports:
+        assert dataclasses.astuple(tr.compression) == want
+        tr.aggregate(torch.ones((4, 40)))
+        assert tr.net.stats().msg_size > 0
 
 
 def _check_wire_case(case):

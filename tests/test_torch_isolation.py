@@ -8,7 +8,9 @@
   ``RuntimeError`` when there is none, instead of falling back to the CPU;
 * every knob of a later slice raises ``NotImplementedError`` naming its
   ROADMAP item, and the knobs of the slices already ported reach the
-  transport (the wire backend among them since slice 10).
+  transport (the wire backend among them since slice 10); since slice
+  11 MPC-FSDP, top-k compression and checkpoints run, and top-k on the
+  wire raises the reference's ``ValueError``.
 """
 
 import ast
@@ -156,8 +158,14 @@ def test_spmd_transport_elects_on_its_own_device(monkeypatch):
     assert committee.shape == (3,)
 
 
-def _train_knob(name):
-    """A later-slice option of the train path, as a call that must raise."""
+#: train-path knobs of slice 11, which run now (``_train_knob`` returns
+#: a check of what each builds)
+PORTED_KNOBS = ("fsdp", "fsdp_none", "compress_topk", "ckpt_dir")
+
+
+def _train_knob(name, tmp_path=None):
+    """A later-slice option of the train path, as a call that must raise;
+    for the knobs of ``PORTED_KNOBS``, a call that checks what it builds."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -172,14 +180,20 @@ def _train_knob(name):
 
     # the flash kernel has no backward: "pallas" while autograd records
     q = torch.zeros((1, 1, 8, 4), requires_grad=True)
+    def ported(build, check):
+        return lambda: check(build())
+
     return {
-        "fsdp": lambda: steps.make_train_step(smoke, fsdp=True,
-                                              device="cpu"),
+        "fsdp": ported(lambda: steps.make_train_step(smoke, fsdp=True,
+                                                     device="cpu"),
+                       lambda st: st.fsdp and st.dims),
         # tinyllama-1.1b's fp32 state takes the MPC-FSDP layout
-        "fsdp_none": lambda: steps.make_train_step(
+        "fsdp_none": ported(lambda: steps.make_train_step(
             get_config("tinyllama-1.1b"), device="cpu"),
-        "compress_topk": lambda: steps.make_train_step(
+            lambda st: st.fsdp),
+        "compress_topk": ported(lambda: steps.make_train_step(
             smoke, compress_topk=0.1, device="cpu"),
+            lambda st: st.compress_topk == 0.1 and not st.fsdp),
         "pallas": lambda: attention.attention(q, q, q, smoke, impl="pallas"),
         "moe": lambda: transformer.init(dataclasses.replace(
             smoke, n_experts=4, top_k=2, d_ff_expert=32)),
@@ -193,43 +207,55 @@ def _train_knob(name):
             smoke, frontend="embeddings")),
         "serve_tp": lambda: serve.run(serve.parse_args(
             ["--smoke", "--tp", "2", "--device", "cpu"])),
-        "ckpt_dir": cli("--ckpt-dir", "ckpt"),
+        "ckpt_dir": ported(cli("--ckpt-dir", str(tmp_path), "--steps", "1",
+                               "--batch", "2", "--seq", "8"),
+                           lambda out: out["start"] == 0 and len(
+                               os.listdir(tmp_path)) == 1),
     }[name]
 
 
 @pytest.mark.parametrize("knob", [
-    # the wire backend is ported (slice 10); top-k on it still raises
+    # the wire backend is ported (slice 10) and top-k (slice 11); top-k
+    # on the wire raises the reference's ValueError
     dict(compress_topk=0.1), dict(compress_topk=0.1, backend="wire"),
     "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "enc_dec",
     "prefill", "ckpt_dir", "starcoder2", "layernorm", "window", "serve_tp",
 ])
-def test_later_slice_knobs_raise_not_implemented(knob, monkeypatch):
+def test_later_slice_knobs_raise_not_implemented(knob, monkeypatch,
+                                                 tmp_path):
+    if knob in PORTED_KNOBS:
+        # slice 11 ported these: each builds what the reference builds
+        assert _train_knob(knob, tmp_path)()
+        return
     if isinstance(knob, str):
         with pytest.raises(NotImplementedError,
                            match=r"not ported yet.*ROADMAP queue"):
             _train_knob(knob)()
         return
     if knob.get("backend") == "wire":
-        # a wire spec with top-k raises from the spec's transport factory
-        # before a port is bound or a worker spawned
+        # a wire spec with top-k raises the reference's FLSimulation
+        # ValueError from the spec's transport factory, before a port is
+        # bound or a worker spawned
         from repro_torch import api
         from repro_torch.net import WireTransport
 
         def start(self):
             pytest.fail("the wire transport started")
         monkeypatch.setattr(WireTransport, "start", start)
-        with pytest.raises(NotImplementedError, match="later|not ported"):
+        with pytest.raises(ValueError, match="not implemented on the wire"):
             api.make_transport(api.ExperimentSpec(n=4, **knob),
                                device="cpu")
         return
+    # top-k in FedAvg (slice 11): the config carries the compression
     from repro_torch.fl import FedAvgConfig
-    with pytest.raises(NotImplementedError, match="later|not ported"):
-        FedAvgConfig(n_parties=4, **knob)
+    cfg = FedAvgConfig(n_parties=4, **knob)
+    assert cfg.compression().top_k_ratio == knob["compress_topk"]
 
 
 def test_falcon_mamba_is_ported_and_its_training_needs_mpc_fsdp():
     """The SSM family serves (falcon-mamba-7b loads at full size); its
-    7.26 B parameters take the MPC-FSDP layout, a later slice."""
+    7.26 B parameters take the MPC-FSDP layout, which the step resolves
+    to (slice 11)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import transformer
@@ -242,15 +268,16 @@ def test_falcon_mamba_is_ported_and_its_training_needs_mpc_fsdp():
     transformer.check_family(cfg)
     assert transformer.stack_plan(cfg) == (("ssm",), 64, ())
     assert steps.needs_fsdp(cfg)
-    with pytest.raises(NotImplementedError, match="MPC-FSDP.*ROADMAP queue"):
-        steps.make_train_step(cfg, device="cpu")
+    step = steps.make_train_step(cfg, device="cpu")
+    assert step.fsdp and step.dims[("layers", "b0_ssm", "ssm",
+                                    "in_proj")] is not None
 
 
 def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
     """The hybrid family serves (recurrentgemma-9b loads at full size);
     its 10.4 B float32 parameters and their Adam moments take the
-    MPC-FSDP layout, a later slice.  A dense block with a window still
-    raises (starcoder2-3b's)."""
+    MPC-FSDP layout, which the step resolves to (slice 11).  A dense
+    block with a window still raises (starcoder2-3b's)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -267,8 +294,8 @@ def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
     assert transformer.stack_plan(cfg) == (("rec", "rec", "attn"), 12,
                                            ("rec", "rec"))
     assert steps.needs_fsdp(cfg)
-    with pytest.raises(NotImplementedError, match="MPC-FSDP.*ROADMAP queue"):
-        steps.make_train_step(cfg, device="cpu")
+    step = steps.make_train_step(cfg, device="cpu")
+    assert step.fsdp and step.dims[("tail", 0, "rec", "w_x")] is not None
     with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
         transformer.check_family(dataclasses.replace(cfg, family="dense"))
 
