@@ -26,14 +26,22 @@ non-zero without the final result line):
    64, Sq < Skv, D = 128 (float32 and bf16) and D = 32 (bf16), and at
    recurrentgemma-9b's D = 256 with 16 query heads on one KV head (its
    prefill shape [8, 16, 2048, 256] in window 2,048, ragged lengths, a
-   binding window of 256); ``decode_attention`` (the split kernel and
+   binding window of 256), and at the MoE family's prefill shapes,
+   qwen3-moe-235b-a22b's q [8, 64, 2048, 128] on 4 KV heads (group 16)
+   and grok-1-314b's [8, 48, 2048, 128] on 8 (group 6), causal, in bf16
+   and float32, each timed (events and graph replay) beside its bound
+   and SDPA's time; ``decode_attention`` (the split kernel and
    its fold: partials and the normalized output) at [8, 16, 64] against
    a cache of S = 640 at kv_len 1 / 7 / 65 / 300 / 640 (bf16 and float32
    queries on a bf16 cache, and a float32 cache), the GQA group (32, 4),
    and group 16 × D 256 against S = 2,048 at kv_len 1 / 9 / 192 / 1,000
    / 2,048 (7 and 9 below one split; 1,000 and the GQA group's 300 end
    in a ragged split; qwen's one-row heads take one split at any
-   kv_len); float32 outputs to 2e-5 absolute + 1e-4 relative, bf16
+   kv_len), and the MoE serve paths' group 16 × D 128 against S = 160
+   at kv_len 1 / 9 / 100 / 160 and group 6 × D 128 against S = 80 at
+   kv_len 1 / 33 / 80 (100, 33 and 80 end in a ragged split), both
+   against S = 2,048 at kv_len 1,000; float32 outputs to 2e-5 absolute
+   + 1e-4 relative, bf16
    outputs to one bf16 step of each value (2^-7 relative) + 2e-5;
    median times from CUDA events beside the bound, the plain version's
    time and SDPA's (timed for the table only; a decode row's time is
@@ -222,8 +230,40 @@ non-zero without the final result line):
 26. ring: the smoke config (window 8) served through the kernels for 24
     steps, so its 8-slot ring wraps twice, each step's float32 logits
     against the plain step fed the same tokens (1e-4);
-27. summary: a ``{"kernels": [...]}`` line (the attention kernels also
-    at D = 256, under ``d256``), then the result line.
+27. moe_init, moe_prefill, moe_serve: qwen3-moe-235b-a22b at full width
+    (d 4,096, 64 heads on 4 KV heads, 128 experts, top 8, expert FF
+    1,536, vocab 151,936), the depth cut from 94 to 4 layers
+    (11,195,678,720 parameters, 44.8 GB of float32, random weights from
+    seed 0): ``make_prefill`` at batch 8 x 2,048 in bf16 (capacity
+    1,280, 131,072 assignments; 4 flash launches a call), the share of
+    assignments dropped in each layer, wall, tok/s, peak memory and one
+    profiled call; one layer's ``moe_apply`` under CUDA's sync debug
+    mode (no wait for the host); at batch 2 the float32 logits against
+    the plain path to 1e-3 and the bf16 logits within the
+    bf16-vs-float32 RMS, every path run under the float32 kernel path's
+    routing (``moe.force_routing``), and the (token, layer) pairs whose
+    own routing differs between the kernel and plain paths counted,
+    each at a near-tie (float32: the k-th and (k+1)-th router logits
+    within 1e-4; bf16: within what its logits moved); then the
+    ``launch.serve`` loop at batch 8, prompt 128, gen 32: in float32
+    every step's logits against the plain step fed the same tokens under
+    the kernel step's routing (1e-2), greedy tokens equal except at
+    near-ties; in bf16 4 decode launches a step, ms a step, tok/s, the
+    ms a step spends casting the expert stacks to bf16 and one profiled
+    step;
+28. grok_moe_init, grok_moe_prefill, grok_moe_serve: grok-1-314b at
+    full width (d 6,144, 48 heads on 8 KV heads, 8 experts, top 2,
+    expert FF 32,768), cut from 64 to 2 layers (11,450,572,800
+    parameters, 45.8 GB): the same checks, prefill at 8 x 2,048
+    (capacity 5,120), serving at prompt 64, gen 16;
+29. hybrid_train: recurrentgemma-9b at full width cut to one (rec, rec,
+    attn) group and its 2-layer tail (3,223,478,272 parameters) through
+    the trainer's layout rule (MPC-FSDP at one party), 3 steps at batch
+    8 x 128 on the chunked scan under autograd: step wall, tok/s, peak
+    memory, the share and reconstruct launches a step;
+30. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+    at D = 256, under ``d256``, and at the MoE family's shapes, under
+    ``moe``), then the result line.
 
 Every phase prints one JSON object per line.  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
@@ -2682,7 +2722,27 @@ FLASH_CASES = [
     # the bf16 tensor-core kernel's other head-dim buckets
     ("d128_bf16", 2, 8, 2, 700, 700, 128, True, 0, "bfloat16"),
     ("d32_bf16", 2, 16, 4, 1000, 1000, 32, True, 100, "bfloat16"),
+    # the MoE family's prefill at batch 8 x 2,048: qwen3-moe-235b-a22b's
+    # 64 query heads on 4 KV heads (group 16) and grok-1-314b's 48 on 8
+    # (group 6), D 128, causal, in bf16 and float32; all four timed
+    ("moe_prefill", 8, 64, 4, 2048, 2048, 128, True, 0, "bfloat16"),
+    ("moe_prefill_f32", 8, 64, 4, 2048, 2048, 128, True, 0, "float32"),
+    ("grok_prefill", 8, 48, 8, 2048, 2048, 128, True, 0, "bfloat16"),
+    ("grok_prefill_f32", 8, 48, 8, 2048, 2048, 128, True, 0, "float32"),
 ]
+#: the flash cases timed (events and graph replay, bound, SDPA)
+FLASH_TIMED = ("prefill", "rg_prefill", "moe_prefill", "moe_prefill_f32",
+               "grok_prefill", "grok_prefill_f32")
+
+
+def _to_query_heads(t, hq: int):
+    """``t`` [B, Hkv, S, D] with each KV head repeated for its group of
+    query heads (a view where Hkv is 1 or Hq, else a copy): SDPA's
+    inputs."""
+    hkv = t.shape[1]
+    if hkv in (1, hq):
+        return t.expand(t.shape[0], hq, *t.shape[2:])
+    return t.repeat_interleave(hq // hkv, dim=1)
 
 
 def phase_flash_kernel() -> dict:
@@ -2719,18 +2779,21 @@ def phase_flash_kernel() -> dict:
                  "shape": [b, hq, hkv, sq, skv, d], "causal": causal,
                  "window": window, "dtype": dt, "max_abs_err": err,
                  "tol": [atol, rtol], "tol_share": share}
-        if name in ("prefill", "rg_prefill"):
+        if name in FLASH_TIMED:
             elt = q.element_size()
             nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
             flops = 4 * b * hq * d * visible_pairs(sq, skv, causal, window)
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            # float32 runs on the CUDA cores (FP32 peak), bf16 on the
+            # tensor cores
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S
+                               if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+            kernel = (lambda: flash_attention(q, k, v, causal=causal,
+                                              window=window))
             # Sq = Skv and a window of at least Skv: SDPA's is_causal mask
             # is the same mask; its k and v are expanded to Hq heads
-            ke = k.expand(b, hq, skv, d)
-            ve = v.expand(b, hq, skv, d)
+            ke, ve = _to_query_heads(k, hq), _to_query_heads(v, hq)
             entry.update(
-                ms=cuda_ms(lambda: flash_attention(
-                    q, k, v, causal=causal, window=window), 10),
+                ms=cuda_ms(kernel, 10), graph_ms=graph_ms(kernel, 3, 5),
                 plain_ms=cuda_ms(lambda: attention_ref(
                     q, k, v, causal=causal, window=window), 3),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -2770,11 +2833,30 @@ DECODE_CASES = [
     (8, 16, 1, 2048, 256, 2048, "bfloat16", "bfloat16"),
     (8, 16, 1, 2048, 256, 192, "float32", "bfloat16"),
     (8, 16, 1, 2048, 256, 1000, "float32", "float32"),
+    # the MoE family's serve paths, D 128: qwen3-moe-235b-a22b's 64 query
+    # heads on 4 KV heads (group 16) against S = 160 (prompt 128 + gen
+    # 32), grok-1-314b's 48 on 8 (group 6) against S = 80 (64 + 16);
+    # kv_len 100 (7 splits of 16, the last 4 keys), 33 and 80 (splits of
+    # 16 and 32 keys, the last 1 and 16) end in a ragged split, and a
+    # cache of 2,048 at kv_len 1,000 in both groups
+    (8, 64, 4, 160, 128, 1, "bfloat16", "bfloat16"),
+    (8, 64, 4, 160, 128, 9, "bfloat16", "bfloat16"),
+    (8, 64, 4, 160, 128, 100, "bfloat16", "bfloat16"),
+    (8, 64, 4, 160, 128, 160, "bfloat16", "bfloat16"),
+    (8, 64, 4, 160, 128, 100, "float32", "bfloat16"),
+    (8, 64, 4, 160, 128, 160, "float32", "bfloat16"),
+    (8, 64, 4, 2048, 128, 1000, "bfloat16", "bfloat16"),
+    (8, 48, 8, 80, 128, 1, "bfloat16", "bfloat16"),
+    (8, 48, 8, 80, 128, 33, "bfloat16", "bfloat16"),
+    (8, 48, 8, 80, 128, 80, "bfloat16", "bfloat16"),
+    (8, 48, 8, 80, 128, 80, "float32", "bfloat16"),
+    (8, 48, 8, 2048, 128, 1000, "float32", "float32"),
 ]
-#: the timed decode rows: (d, kv_len) of the bf16 serve shapes, qwen's
-#: longest step and recurrentgemma-9b's full window (the steady state of
-#: long serving)
-DECODE_TIMED = {(64, 640): "qwen", (256, 2048): "rg"}
+#: the timed decode rows, (Hq, D, kv_len) of the bf16 serve shapes' longest
+#: steps: qwen's, recurrentgemma-9b's full window (the steady state of
+#: long serving), qwen3-moe-235b-a22b's and grok-1-314b's
+DECODE_TIMED = {(16, 64, 640): "qwen", (16, 256, 2048): "rg",
+                (64, 128, 160): "moe", (48, 128, 80): "grok"}
 
 
 def phase_decode_kernel() -> dict:
@@ -2823,8 +2905,8 @@ def phase_decode_kernel() -> dict:
                  "cache_dtype": kvdt, "max_abs_err": err,
                  "normalized_max_abs_err": err_out,
                  "tol": [F32_ATOL, F32_RTOL]}
-        timed = DECODE_TIMED.get((d, kv_len))
-        if timed and (qdt, kvdt, hq) == ("bfloat16", "bfloat16", 16):
+        timed = DECODE_TIMED.get((hq, d, kv_len))
+        if timed and (qdt, kvdt) == ("bfloat16", "bfloat16"):
             nbytes = (q.element_size() * b * hq * d
                       + k.element_size() * 2 * b * hkv * kv_len * d
                       + q.element_size() * b * hq * d)
@@ -2833,8 +2915,8 @@ def phase_decode_kernel() -> dict:
             # one query against the cache cut to kv_len, k and v expanded
             # to Hq heads
             q1 = q[:, :, None]
-            kc = k[:, :, :kv_len].expand(b, hq, kv_len, d)
-            vc = v[:, :, :kv_len].expand(b, hq, kv_len, d)
+            kc = _to_query_heads(k[:, :, :kv_len], hq)
+            vc = _to_query_heads(v[:, :, :kv_len], hq)
             # the card's time from graph replays (a call is ~10-60 us of
             # device work under ~40 us of host launch cost), and one
             # call's events, host included, beside it
@@ -3893,6 +3975,362 @@ def phase_hybrid() -> dict:
     return launches
 
 
+#: the MoE family at full width, the depth cut to what one card holds in
+#: float32 with room to run: qwen3-moe-235b-a22b from 94 layers to 4,
+#: grok-1-314b from 64 to 2 (the analytic parameter counts below: 44.8
+#: and 45.8 GB)
+MOE_CUTS = {"qwen3-moe-235b-a22b": (4, 11_195_678_720),
+            "grok-1-314b": (2, 11_450_572_800)}
+#: prefill batch x prompt; the float32 and plain-path checks run at
+#: MOE_CHECK_BATCH (the plain attention's float32 scores are
+#: [B, 64, 2048, 2048])
+MOE_PREFILL_SHAPE = (8, 2048)
+MOE_CHECK_BATCH = 2
+#: serve: batch, prompt, generated tokens
+MOE_SERVE_SHAPE = {"qwen3-moe-235b-a22b": (8, 128, 32),
+                   "grok-1-314b": (8, 64, 16)}
+#: a (token, layer) whose float32 plain-path routing differs from the
+#: kernel path's must sit at a near-tie: its k-th and (k+1)-th router
+#: logits this close
+MOE_NEAR_TIE = 1e-4
+MOE_PROFILE_NAMES = ("flash_attention_mma_kernel", "flash_attention_kernel",
+                     "decode_attention_kernel",
+                     "decode_attention_fold_kernel", "nvjet", "gemm",
+                     "elementwise", "copy", "scan", "index", "gather",
+                     "reduce")
+
+
+def _routing_diff(kern: list, plain: list, batch: int,
+                  near_tie: float | None) -> dict:
+    """The (token, layer) pairs whose expert set in ``plain`` (each
+    call's own top k, ``record_routing``'s ``own``) differs from the set
+    ``kern`` routed to.  Each must sit at a near-tie: its k-th and
+    (k+1)-th logits in ``plain`` within ``near_tie``, or (``None``)
+    within twice the largest change of its logits between the two
+    records, which a flip needs."""
+    import torch
+    pairs, rows, gaps = 0, None, []
+    for a, b in zip(kern, plain, strict=True):
+        k = a["eidx"].shape[1]
+        differ = (a["own"].sort(1).values != b["own"].sort(1).values).any(1)
+        top = b["logits"].sort(1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        limit = (torch.full_like(gap, near_tie) if near_tie is not None
+                 else 2 * (a["logits"] - b["logits"]).abs().amax(1))
+        bad = int((differ & (gap > limit)).sum())
+        require(bad == 0, f"{bad} routing differences away from a near-tie")
+        pairs += int(differ.sum())
+        gaps += gap[differ].tolist()
+        moved = differ.reshape(batch, -1).any(1)
+        rows = moved if rows is None else rows | moved
+    return {"pairs": pairs, "rows_with_a_pair": int(rows.sum()),
+            "max_gap": max(gaps, default=None)}
+
+
+def _moe_prefill(cfg, params, names: tuple, calls: int) -> int:
+    """``make_prefill`` at batch 8 x 2,048 in bf16, timed; then, at
+    MOE_CHECK_BATCH, the kernel path against the plain path under one
+    routing (the float32 kernel path's): float32 logits to
+    PREFILL_F32_TOL, bf16 logits within the bf16-vs-float32 RMS, and the
+    routing each path would take itself counted; returns the flash
+    launches of the timed calls."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import moe
+    (b, s), layers = MOE_PREFILL_SHAPE, cfg.n_layers
+    cap = moe.capacity(b * s, cfg)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    batch = {"tokens": tokens}
+    prefill = make_prefill(cfg)
+    with moe.record_routing() as rec:
+        prefill(params, batch)   # first call: the kernels' first launches
+    drop = [1.0 - float(r["keep"].float().mean()) for r in rec]
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    walls = []
+    for _ in range(calls):
+        wall, logits = _timed(lambda: prefill(params, batch))
+        walls.append(wall)
+    flash = dispatch.launches["repro_flash_attention"]
+    require(flash == layers * calls
+            and sum(dispatch.launches.values()) == flash,
+            f"{names[1]}: launches {dispatch.launches} over {calls} calls")
+    peak = torch.cuda.max_memory_allocated()
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"{names[1]}: logits are not finite float32 [8, vocab]")
+    prof = _profile(lambda: prefill(params, batch), MOE_PROFILE_NAMES)
+    del logits
+    # the MoE layer waits for the host nowhere: one layer's moe_apply at
+    # the call's shape under the sync debug mode, which raises on a sync
+    layer0 = {k: v[0] for k, v in params["layers"]["b0_moe_attn"][
+        "moe"].items()}
+    x = torch.randn((b, s, cfg.d_model), device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(layer0, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del x, layer0
+
+    sub = {"tokens": tokens[:MOE_CHECK_BATCH]}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with moe.record_routing() as rec32:
+        kern32 = make_prefill(cfg32)(params, sub)
+    route = [r["eidx"] for r in rec32]
+    out, recs = {}, {}
+    for name, c, impl in (("plain32", cfg32, "dense"),
+                          ("kern16", cfg, "auto"),
+                          ("plain16", cfg, "dense")):
+        with moe.force_routing(route), moe.record_routing() as recs[name]:
+            out[name] = make_prefill(c, attn_impl=impl)(params, sub)
+    err32 = float((kern32 - out["plain32"]).abs().max())
+    require(bool(torch.isfinite(kern32).all()) and err32 <= PREFILL_F32_TOL,
+            f"{names[1]} float32: kernel vs plain logits differ by {err32}")
+    bf16_noise = {"max_abs": float((out["plain16"] - out["plain32"]).abs()
+                                   .max()),
+                  "rms": _rms(out["plain16"] - out["plain32"])}
+    err = {"max_abs": float((out["kern16"] - out["plain16"]).abs().max()),
+           "rms": _rms(out["kern16"] - out["plain16"])}
+    require(err["rms"] <= bf16_noise["rms"],
+            f"{names[1]} bf16: kernel vs plain logits differ by {err}, more "
+            f"than bf16 compute moves them ({bf16_noise})")
+    routing = {"float32": _routing_diff(rec32, recs["plain32"],
+                                        MOE_CHECK_BATCH, MOE_NEAR_TIE),
+               "bfloat16": _routing_diff(recs["kern16"], recs["plain16"],
+                                         MOE_CHECK_BATCH, None)}
+    emit({"phase": names[1], "arch": cfg.name, "layers": layers,
+          "batch": b, "prompt": s, "compute_dtype": "bfloat16",
+          "experts": cfg.n_experts, "top_k": cfg.top_k, "capacity": cap,
+          "assignments": b * s * cfg.top_k,
+          "dropped_share_per_layer": drop,
+          "flash_launches_per_call": flash // calls, "wall_s": walls,
+          "tok_per_s": [b * s / w for w in walls], "peak_mem_bytes": peak,
+          "no_host_sync_in_moe_apply": True,
+          "check_batch": MOE_CHECK_BATCH,
+          "checks_under_the_f32_kernel_paths_routing": True,
+          "f32_logits_max_abs_err_vs_plain": err32,
+          "f32_tol": PREFILL_F32_TOL, "logits_err_vs_plain": err,
+          "bf16_vs_f32_logits": bf16_noise,
+          "routing_pairs_differing": routing, "near_tie": MOE_NEAR_TIE,
+          "profiled_call": prof})
+    return flash
+
+
+def _moe_serve(cfg, params, name: str) -> int:
+    """The ``launch.serve`` loop: in float32 each step against the plain
+    step fed the same tokens, under the kernel step's routing; then the
+    config's bf16, timed; returns the decode launches of the bf16 run."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import moe, transformer
+    (b, plen, gen), layers = MOE_SERVE_SHAPE[cfg.name], cfg.n_layers
+    kv_len = plen + gen
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab, size=(b, plen))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain_cache = transformer.init_cache(cfg32, b, kv_len)
+    stats = {"max_err": 0.0, "near_ties": 0, "steps": 0, "pairs": 0,
+             "max_gap": None}
+    with moe.record_routing() as krec:
+        def observe(dbatch, logits):
+            kern = krec[-layers:]
+            with moe.force_routing([r["eidx"] for r in kern]), \
+                    moe.record_routing() as prec:
+                want, _ = transformer.decode_step(params, plain_cache, dbatch,
+                                                  cfg32, impl="dense")
+            diff = _routing_diff(kern, prec, b, None)
+            krec.clear()
+            err = float((logits - want).abs().max())
+            require(bool(torch.isfinite(logits).all())
+                    and err <= SERVE_F32_TOL,
+                    f"{name} float32 step {dbatch['index']}: logits differ "
+                    f"from the plain step by {err}")
+            top2 = want.topk(2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) <= SERVE_F32_TOL
+            differ = logits.argmax(-1) != want.argmax(-1)
+            require(not bool((differ & ~tie).any()),
+                    f"{name} float32 step {dbatch['index']}: a greedy token "
+                    "differs from the plain step's away from a near-tie")
+            stats["max_err"] = max(stats["max_err"], err)
+            stats["near_ties"] += int((differ & tie).sum())
+            stats["steps"] += 1
+            stats["pairs"] += diff["pairs"]
+            if diff["max_gap"] is not None:
+                stats["max_gap"] = max(stats["max_gap"] or 0.0,
+                                       diff["max_gap"])
+
+        with torch.no_grad():
+            res32 = generate(cfg32, params, prompt, gen, observe=observe)
+    require(stats["steps"] == kv_len
+            and res32["tokens"].shape == (b, gen),
+            f"{name} float32: {stats['steps']} steps observed")
+    del plain_cache, res32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = generate(cfg, params, prompt, gen)
+    launches = dispatch.launches["repro_decode_attention"]
+    require(launches == layers * kv_len
+            and sum(dispatch.launches.values()) == launches,
+            f"{name}: launches {dispatch.launches} over {kv_len} steps")
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(toks.shape == (b, gen) and toks.min() >= 0
+            and toks.max() < cfg.vocab, f"{name}: tokens {toks.shape}")
+    step = make_serve_step(cfg, kv_len, b)
+    cache = res["cache"]
+    last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
+            "index": kv_len - 1}
+    prof = _profile(lambda: step(params, cache, last), MOE_PROFILE_NAMES)
+    _require_split_decode(prof, layers, cfg, b, kv_len, name)
+    # what a step spends casting the expert stacks to bf16, as the
+    # reference does on every step: the three stacks of every layer
+    experts = params["layers"]["b0_moe_attn"]["moe"]
+
+    def cast():
+        for w in ("w_gate", "w_up", "w_down"):
+            experts[w].to(torch.bfloat16)
+    emit({"phase": name, "arch": cfg.name, "layers": layers,
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": gen, "decode_launches_per_step": launches // kv_len,
+          "prompt_steps_s": res["prompt_s"], "gen_s": res["gen_s"],
+          "ms_per_decode_step": res["gen_s"] / gen * 1e3,
+          "gen_tok_per_s": b * gen / res["gen_s"], "peak_mem_bytes": peak,
+          "expert_cast_ms_per_step": cuda_ms(cast, 3),
+          "f32_check": {"steps": stats["steps"],
+                        "logits_max_abs_err_vs_plain": stats["max_err"],
+                        "tol": SERVE_F32_TOL,
+                        "greedy_tokens_differing_at_near_ties":
+                            stats["near_ties"],
+                        "routing_pairs_differing": stats["pairs"],
+                        "routing_max_gap": stats["max_gap"]},
+          "sample_row": toks[0][:16].tolist(), "profiled_step": prof})
+    del res, cache
+    return launches
+
+
+def phase_moe() -> dict:
+    """qwen3-moe-235b-a22b (4 of 94 layers) and grok-1-314b (2 of 64) at
+    full width, random weights from seed 0: init, prefill, serving;
+    returns the attention kernels' launches on these paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    launches = {"repro_flash_attention": 0, "repro_decode_attention": 0}
+    for arch, names, calls in (
+            ("qwen3-moe-235b-a22b", ("moe_init", "moe_prefill", "moe_serve"),
+             3),
+            ("grok-1-314b", ("grok_moe_init", "grok_moe_prefill",
+                             "grok_moe_serve"), 2)):
+        full = get_config(arch)
+        layers, want = MOE_CUTS[arch]
+        cfg = dataclasses.replace(full, n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = get_api(cfg).init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the reference's analytic count leaves out the final norm
+        n_params = sum(p.numel() for p in model.parameters())
+        require(cfg.param_count() == want
+                and n_params == cfg.param_count() + cfg.d_model,
+                f"{arch}: {n_params} parameters, {cfg.param_count()} "
+                "analytic")
+        emit({"phase": names[0], "arch": arch,
+              "cut": f"depth {full.n_layers} -> {layers} layers, full width",
+              "params": n_params, "param_count_analytic": cfg.param_count(),
+              "param_bytes": 4 * n_params, "init_s": init_s,
+              "allocated_before_init_bytes": before,
+              "init_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        params = model.params()
+        launches["repro_flash_attention"] += _moe_prefill(cfg, params,
+                                                          names, calls)
+        launches["repro_decode_attention"] += _moe_serve(cfg, params,
+                                                         names[2])
+        del model, params
+        torch.cuda.empty_cache()
+    return launches
+
+
+#: the hybrid's training on the card: recurrentgemma-9b at full width,
+#: the depth cut to one (rec, rec, attn) group and its 2-layer tail
+HYBRID_TRAIN_STEPS = 3
+HYBRID_TRAIN_SHAPE = (8, 128)
+
+
+def phase_hybrid_train() -> dict:
+    """recurrentgemma-9b cut to 5 layers, through the trainer's layout
+    rule (MPC-FSDP at one party), 3 steps on the chunked scan under
+    autograd; returns the share and reconstruct launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, n_layers=5, n_tail_layers=2)
+    b, s = HYBRID_TRAIN_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, device="cuda")
+    require(step.fsdp, "hybrid_train: the layout rule did not pick MPC-FSDP")
+    model = step.shard_model(transformer.init(cfg, seed=0, device="cuda"))
+    opt = adamw_init(model.params())
+    per_step: list = []
+
+    def observe(grads, agg):
+        per_step.append({k: v for k, v in dispatch.launches.items() if v})
+        dispatch.reset_launches()
+
+    step.observe = observe
+    losses, walls = [], []
+    dispatch.reset_launches()
+    for i in range(HYBRID_TRAIN_STEPS):
+        toks, labels = lm_batch(cfg.vocab, b, s, seed=0, party=0, step=i)
+        t0 = time.perf_counter()
+        model, opt, loss = step(model, opt, i,
+                                {"tokens": toks, "labels": labels})
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), f"hybrid_train: {losses}")
+    require(len(per_step) == HYBRID_TRAIN_STEPS and all(
+        c.get("repro_share_gen", 0) > 0 and c.get("repro_reconstruct", 0) > 0
+        and not any(k in c for k in ("repro_flash_attention",
+                                     "repro_lru_scan"))
+        for c in per_step), f"hybrid_train: launches per step {per_step}")
+    split = sum(d is not None for d in step.dims.values())
+    emit({"phase": "hybrid_train", "arch": cfg.name,
+          "cut": f"depth {full.n_layers} -> {cfg.n_layers} layers (one "
+                 "rec, rec, attn group and the 2-layer tail), full width",
+          "params": cfg.param_count(), "layout": "mpc_fsdp", "parties": 1,
+          "batch": b, "seq": s, "split_leaves": split,
+          "whole_leaves": len(step.dims) - split, "losses": losses,
+          "step_wall_s": walls, "tok_per_s": [b * s / w for w in walls],
+          "launches_per_step": per_step, "peak_mem_bytes": peak})
+    launches = {k: sum(c.get(k, 0) for c in per_step)
+                for k in ("repro_share_gen", "repro_reconstruct")}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -3972,6 +4410,11 @@ def main(argv=None) -> int:
                  "lru_scan": phase_lru_kernel()}
     d256_rows = {"flash_attention": flash_rows["rg_prefill"],
                  "decode_attention": decode_rows["rg"]}
+    # and under "moe" at qwen3-moe-235b-a22b's shapes (grok-1-314b's
+    # beside them), with the MoE paths' launches
+    moe_rows = {"flash_attention": (flash_rows["moe_prefill"],
+                                    flash_rows["grok_prefill"]),
+                "decode_attention": (decode_rows["moe"], decode_rows["grok"])}
     rows = phase_kernels()
     verify_rows = phase_verify_kernel()
     # the kernels line reports verify_shares at the audit shape, the
@@ -4020,6 +4463,11 @@ def main(argv=None) -> int:
     # family's at the top level, recurrentgemma-9b's under "d256"
     hybrid_launches = phase_hybrid()
     launches["repro_lru_scan"] = hybrid_launches["repro_lru_scan"]
+    moe_launches = phase_moe()
+    # the hybrid's training drives the MPC-FSDP share and reconstruct
+    # kernels, as the train phases do
+    for key, count in phase_hybrid_train().items():
+        launches[key] = launches.get(key, 0) + count
     rows.update(attn_rows)
 
     kernels = []
@@ -4037,6 +4485,17 @@ def main(argv=None) -> int:
                              "launches": hybrid_launches[key],
                              **{k: d256_rows[name].get(k)
                                 for k in ROW_KEYS}}
+        if name in moe_rows:
+            require(moe_launches[key] > 0,
+                    f"{name} was not launched on the MoE path")
+            qwen3, grok = moe_rows[name]
+            entry["moe"] = {"shape": qwen3["shape"],
+                            "launches": moe_launches[key],
+                            "graph_ms": qwen3.get("graph_ms"),
+                            **{k: qwen3.get(k) for k in ROW_KEYS},
+                            "grok": {"shape": grok["shape"],
+                                     "graph_ms": grok.get("graph_ms"),
+                                     **{k: grok.get(k) for k in ROW_KEYS}}}
         kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> config.
 
-Counterpart of ``repro/configs/__init__.py`` for the dense, SSM and
-hybrid families the port runs (the configs are the reference's, as
+Counterpart of ``repro/configs/__init__.py`` for the dense, MoE, SSM
+and hybrid families the port runs (the configs are the reference's, as
 data).  The reference's other architectures belong to later slices and
 raise ``NotImplementedError`` naming their ROADMAP item.  (The reference's
 ``configs/base.py`` holds the dry-run's shape cells and JAX input
@@ -15,6 +15,8 @@ import importlib
 from repro_torch.models.common import ArchConfig
 
 _MODULES = {
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "grok-1-314b": "grok1_314b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "llama3.2-1b": "llama32_1b",
     "tinyllama-1.1b": "tinyllama_11b",
@@ -25,8 +27,6 @@ _MODULES = {
 #: architectures of the reference that later slices of the port carry
 #: over, and the ROADMAP item of each
 LATER_ARCHS = {
-    "qwen3-moe-235b-a22b": "the MoE family (ROADMAP queue 1, item 6)",
-    "grok-1-314b": "the MoE family (ROADMAP queue 1, item 6)",
     "whisper-large-v3": "the enc-dec family (ROADMAP queue 1, item 6)",
     "qwen2-vl-2b": "the embeddings frontend (ROADMAP queue 1, item 6)",
     "starcoder2-3b": ("the layernorm / gelu / sliding-window dense block "

@@ -356,9 +356,9 @@ def make_prefill(cfg: ArchConfig, attn_impl: str = "auto", device="cuda"):
     position).  ``params``: the model's ``params()`` tree;
     ``batch["tokens"]`` ``[B, S]`` (numpy or a tensor) is moved to the
     step's device.  ``attn_impl="auto"`` runs the flash kernel (dense
-    family), the selective-scan kernel (SSM family), or the RG-LRU scan
-    and flash kernels (hybrid family) on the card; ``"dense"`` their
-    plain paths."""
+    and MoE families), the selective-scan kernel (SSM family), or the
+    RG-LRU scan and flash kernels (hybrid family) on the card;
+    ``"dense"`` their plain paths."""
     api = get_api(cfg)
     device = dispatch.resolve_device(device)
 

@@ -1,10 +1,10 @@
 """Model API registry: family -> (init, loss, prefill, cache, decode).
 
-Counterpart of ``repro/models/registry.py`` for the dense, SSM and
-hybrid families: the transformer API's ``init``, ``loss_fn``,
+Counterpart of ``repro/models/registry.py`` for the dense, MoE, SSM
+and hybrid families: the transformer API's ``init``, ``loss_fn``,
 ``prefill``, ``init_cache`` and ``decode_step`` (the reference routes
-``ssm`` and ``hybrid`` through the same API).  The other families
-raise ``NotImplementedError`` (``transformer.check_family``).
+``moe``, ``ssm`` and ``hybrid`` through the same API).  The other
+families raise ``NotImplementedError`` (``transformer.check_family``).
 """
 
 from __future__ import annotations

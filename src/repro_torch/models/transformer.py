@@ -1,12 +1,13 @@
-"""Decoder-only LM of the dense, SSM and hybrid families, as an
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families, as an
 ``nn.Module``.
 
 Counterpart of ``repro/models/transformer.py`` for the dense family
-(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b), the SSM family
-(falcon-mamba-7b, ``models/ssm.py``) and the hybrid family
-(recurrentgemma-9b: (rec, rec, local-attn) triads and trailing rec
-layers, ``models/hybrid.py``): one parameter schema and the training
-and serving entry points.
+(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b), the MoE family
+(qwen3-moe-235b-a22b, grok-1-314b: attention and a routed expert FFN
+in every layer, ``models/moe.py``), the SSM family (falcon-mamba-7b,
+``models/ssm.py``) and the hybrid family (recurrentgemma-9b: (rec, rec,
+local-attn) triads and trailing rec layers, ``models/hybrid.py``): one
+parameter schema and the training and serving entry points.
 
 * ``init(cfg, seed, device)`` — a ``Transformer`` whose parameters are
   registered under the reference's tree keys, with the layers
@@ -15,7 +16,8 @@ and serving entry points.
   sit unstacked in the **list** ``tail``, one block a layer, as the
   reference's (``['tail']/[0]/['rec']/['w_x']``).  So the gradient tree
   has the reference's 14 leaves for qwen1.5-0.5b (13 for
-  falcon-mamba-7b, 72 for recurrentgemma-9b), with the same key paths
+  falcon-mamba-7b, 72 for recurrentgemma-9b, 13 for a MoE config under
+  ``layers/['b0_moe_attn']``), with the same key paths
   and element order, and the secure aggregation's per-leaf seeds
   (``fl.spmd.leaf_seed_tag``) and Philox streams are the reference's.
 * ``loss_fn(params, batch, cfg, layer_transform=None)`` — next-token
@@ -40,14 +42,16 @@ and serving entry points.
   runs its attention through the decode kernel
   (``kernels/decode_attention``), where the reference computes it
   inline (ROADMAP queue 3, finding 4); the SSM and rec steps have no
-  kernel, in either package.
+  kernel, in either package.  A MoE layer's step routes the batch's
+  ``B`` tokens under their own capacity, as the reference's: decode over
+  a prompt equals prefill only where neither drops an assignment.
 
 The loop over layers takes each stacked leaf apart once with ``unbind``,
 so backward writes each leaf's gradient as one ``[L, ...]`` stack.
 ``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` while
 autograd records: the backward recomputes the layer's forward with the
-same operations, so no number changes.  The MoE and enc-dec families,
-and a dense block with a sliding window, layernorm or a plain gelu MLP,
+same operations, so no number changes.  The enc-dec family, and a
+dense or MoE block with a sliding window, layernorm or a plain gelu MLP,
 are later slices and raise ``NotImplementedError``.
 """
 
@@ -65,7 +69,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (combine_partials,
                                                   decode_attention,
                                                   decode_attention_ref)
-from . import hybrid, ssm
+from . import hybrid, moe, ssm
 from .attention import attention
 from .common import ArchConfig, dtype_of, shard
 from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
@@ -74,18 +78,15 @@ from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
 
 #: families of the reference that later slices of the port carry over
 LATER_FAMILIES = {
-    "moe": "the MoE family (ROADMAP queue 1, item 6)",
     "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, an SSM or
-    a hybrid LM."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, a MoE, an
+    SSM or a hybrid LM."""
     if cfg.enc_dec:
         key = "enc_dec"
-    elif cfg.n_experts:
-        key = "moe"
     elif cfg.frontend != "tokens":
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
@@ -103,8 +104,9 @@ def check_family(cfg: ArchConfig) -> None:
             f"norm={cfg.norm!r}, act={cfg.act!r}, window={cfg.window} "
             f"({cfg.name}) is not ported yet: it belongs to ROADMAP queue "
             "1, item 6 of the PyTorch port, whose dense block is rmsnorm, "
-            "a SiLU-gated MLP and full causal attention (qwen1.5-0.5b, "
-            "tinyllama-1.1b, llama3.2-1b)")
+            "a SiLU-gated MLP or SiLU experts and full causal attention "
+            "(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b, "
+            "qwen3-moe-235b-a22b, grok-1-314b)")
     else:
         return
     raise NotImplementedError(
@@ -168,10 +170,10 @@ def attn_apply(p, x, cfg: ArchConfig, positions, impl: str = "auto",
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "ssm", "rec"):
+    if kind not in ("attn", "moe_attn", "ssm", "rec"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet ('attn', 'ssm' and "
-            "'rec' only)")
+            f"block kind {kind!r} is not ported yet ('attn', 'moe_attn', "
+            "'ssm' and 'rec' only)")
 
 
 def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
@@ -184,10 +186,14 @@ def block_init(gen, cfg: ArchConfig, dtype, kind: str, device=None):
                 "rec": hybrid.rec_block_init(gen, cfg, dtype, device),
                 "ln2": norm_init(cfg, dtype, device),
                 "mlp": mlp_init(gen, cfg, dtype, device)}
-    return {"ln1": norm_init(cfg, dtype, device),
-            "attn": attn_init(gen, cfg, dtype, device),
-            "ln2": norm_init(cfg, dtype, device),
-            "mlp": mlp_init(gen, cfg, dtype, device)}
+    p = {"ln1": norm_init(cfg, dtype, device),
+         "attn": attn_init(gen, cfg, dtype, device),
+         "ln2": norm_init(cfg, dtype, device)}
+    if kind == "moe_attn":
+        p["moe"] = moe.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, dtype, device)
+    return p
 
 
 def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
@@ -202,7 +208,10 @@ def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
         return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
     h = x + attn_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cfg,
                        positions, impl=impl)
-    return h + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], h), cfg)
+    inner = apply_norm(cfg, p["ln2"], h)
+    if kind == "moe_attn":
+        return h + moe.moe_apply(p["moe"], inner, cfg)
+    return h + mlp_apply(p["mlp"], inner, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -212,15 +221,16 @@ def block_apply(p, x, cfg: ArchConfig, positions, kind: str,
 def stack_plan(cfg: ArchConfig) -> tuple[tuple[str, ...], int,
                                          tuple[str, ...]]:
     """Returns (group_kinds, n_groups, tail_kinds), as the reference: one
-    ``ssm`` or ``attn`` block per layer, or the hybrid's groups of its
-    block pattern (``rec, rec, attn``) and its ``rec`` tail."""
+    ``ssm``, ``moe_attn`` (a MoE config) or ``attn`` block per layer, or
+    the hybrid's groups of its block pattern (``rec, rec, attn``) and its
+    ``rec`` tail."""
     if cfg.family == "ssm":
         return ("ssm",), cfg.n_layers, ()
     if cfg.family == "hybrid":
         pattern = cfg.block_pattern or ("rec", "rec", "attn")
         n_groups = (cfg.n_layers - cfg.n_tail_layers) // len(pattern)
         return tuple(pattern), n_groups, ("rec",) * cfg.n_tail_layers
-    return ("attn",), cfg.n_layers, ()
+    return ("moe_attn" if cfg.n_experts else "attn",), cfg.n_layers, ()
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +535,8 @@ def _decode_block(p, x, cache_kv, cfg: ArchConfig, index: int, positions,
     h = x + _decode_attn_block(p["attn"], apply_norm(cfg, p["ln1"], x),
                                cache_kv, cfg, index, positions, impl)
     inner = apply_norm(cfg, p["ln2"], h[:, None, :])
+    if kind == "moe_attn":
+        return h + moe.moe_apply(p["moe"], inner, cfg)[:, 0]
     return h + mlp_apply(p["mlp"], inner, cfg)[:, 0]
 
 

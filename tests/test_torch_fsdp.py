@@ -21,9 +21,10 @@ the JAX package's.
   1)``: the loss to 1e-5 relative, each parameter's update to 1e-6
   absolute (the tolerances of ``tests/test_torch_train.py``); the same
   with the parameters gathered in bf16 (``gather_dtype``) on both sides.
-* One MPC-FSDP step of each family's smoke config (dense, SSM, hybrid)
-  bit for bit equal to the port's replicated step: at one party both
-  compute decode(encode(g)).  Both of the reduce-scatter's paths run.
+* One MPC-FSDP step of each family's smoke config (dense, SSM, hybrid,
+  and both MoE configs) bit for bit equal to the port's replicated step:
+  at one party both compute decode(encode(g)).  Both of the
+  reduce-scatter's paths run.
 * The reference's refusals: FSDP with enc-dec, with ``local_steps > 1``
   and with ``compress_topk``; the trainer's ``--tp`` above 1 and
   ``--production-mesh`` name a ROADMAP item.
@@ -75,7 +76,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PARTIES, SEED, M = 4, 7, 3
 QUANTUM = 2.0 ** -16
 ARCHS = ["qwen1.5-0.5b", "tinyllama-1.1b", "falcon-mamba-7b",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "qwen3-moe-235b-a22b", "grok-1-314b"]
 #: (shape, dim, gidx, path): slices of 1,024 (the kernel path) and of 768
 #: elements (the fallback) per party
 RS_CASES = [((64, 64), 0, 3, "['b0_attn']/['attn']/['wq']"),
@@ -360,7 +361,8 @@ def test_fsdp_step_with_bf16_gather_matches_reference_at_one_party():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "falcon-mamba-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "qwen3-moe-235b-a22b",
+                                  "grok-1-314b"])
 def test_fsdp_step_equals_the_replicated_step_at_one_party(arch,
                                                            monkeypatch):
     cfg = get_config(arch, smoke=True)
@@ -396,7 +398,8 @@ def test_fsdp_step_equals_the_replicated_step_at_one_party(arch,
             assert torch.equal(a.detach().view(torch.int32),
                                b.detach().view(torch.int32)), pa
     # at one party every split slice of the dense smoke config is a
-    # multiple of 1,024 elements; the SSM and hybrid ones hold others
+    # multiple of 1,024 elements; the SSM, hybrid and MoE ones hold others
+    # (a MoE router [64, 4] among them)
     assert paths["kernel"] > 0, paths
     assert (paths["fallback"] > 0) == (arch != "qwen1.5-0.5b"), paths
 

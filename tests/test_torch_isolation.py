@@ -10,7 +10,8 @@
   ROADMAP item, and the knobs of the slices already ported reach the
   transport (the wire backend among them since slice 10); since slice
   11 MPC-FSDP, top-k compression and checkpoints run, and top-k on the
-  wire raises the reference's ``ValueError``.
+  wire raises the reference's ``ValueError``; since slice 12 the MoE
+  family builds the reference's tree.
 """
 
 import ast
@@ -81,7 +82,14 @@ def _entry_points():
     smoke = get_config("qwen1.5-0.5b", smoke=True)
     ssm_smoke = get_config("falcon-mamba-7b", smoke=True)
     hybrid_smoke = get_config("recurrentgemma-9b", smoke=True)
+    moe_smoke = get_config("qwen3-moe-235b-a22b", smoke=True)
     return {
+        "transformer_moe": lambda: transformer.init(moe_smoke),
+        "make_prefill_moe": lambda: steps.make_prefill(moe_smoke),
+        "make_serve_step_moe": lambda: steps.make_serve_step(moe_smoke, 8,
+                                                             2),
+        "serve_moe": lambda: serve.run(serve.parse_args(
+            ["--arch", "grok-1-314b", "--smoke"])),
         "transformer_hybrid": lambda: transformer.init(hybrid_smoke),
         "init_cache_hybrid": lambda: transformer.init_cache(hybrid_smoke, 2,
                                                             8),
@@ -131,7 +139,9 @@ def _entry_points():
                                   "init_cache_ssm", "transformer_hybrid",
                                   "init_cache_hybrid", "make_prefill_hybrid",
                                   "make_serve_step_hybrid", "serve_hybrid",
-                                  "WireTransport", "party_main"])
+                                  "WireTransport", "party_main",
+                                  "transformer_moe", "make_prefill_moe",
+                                  "make_serve_step_moe", "serve_moe"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("capability: a CUDA device is present, so the default "
@@ -158,9 +168,30 @@ def test_spmd_transport_elects_on_its_own_device(monkeypatch):
     assert committee.shape == (3,)
 
 
-#: train-path knobs of slice 11, which run now (``_train_knob`` returns
-#: a check of what each builds)
-PORTED_KNOBS = ("fsdp", "fsdp_none", "compress_topk", "ckpt_dir")
+#: train-path knobs of slices 11 and 12, which run now (``_train_knob``
+#: returns a check of what each builds)
+PORTED_KNOBS = ("fsdp", "fsdp_none", "compress_topk", "ckpt_dir", "moe")
+
+
+def _same_tree_as_reference(cfg, model) -> bool:
+    """``model``'s leaf paths and shapes are those the reference's
+    ``init`` builds for ``cfg`` (shapes only, through ``eval_shape``)."""
+    import dataclasses
+
+    import jax
+
+    from repro.models import common as j_common
+    from repro.models import transformer as j_transformer
+    from repro_torch.core.tree import flatten_with_path, path_str
+    j_cfg = j_common.ArchConfig(**dataclasses.asdict(cfg))
+    abstract = jax.eval_shape(
+        lambda: j_transformer.init(jax.random.PRNGKey(0), j_cfg))
+    want = {"/".join(str(p) for p in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                abstract)[0]}
+    got = {path_str(p): tuple(leaf.shape)
+           for p, leaf in flatten_with_path(model.params())}
+    return got == want and any("['moe']/['router']" in p for p in got)
 
 
 def _train_knob(name, tmp_path=None):
@@ -195,8 +226,9 @@ def _train_knob(name, tmp_path=None):
             smoke, compress_topk=0.1, device="cpu"),
             lambda st: st.compress_topk == 0.1 and not st.fsdp),
         "pallas": lambda: attention.attention(q, q, q, smoke, impl="pallas"),
-        "moe": lambda: transformer.init(dataclasses.replace(
-            smoke, n_experts=4, top_k=2, d_ff_expert=32)),
+        "moe": ported(lambda: transformer.init(dataclasses.replace(
+            smoke, n_experts=4, top_k=2, d_ff_expert=32), device="cpu"),
+            lambda model: _same_tree_as_reference(model.cfg, model)),
         "enc_dec": lambda: get_config("whisper-large-v3"),
         "starcoder2": lambda: get_config("starcoder2-3b"),
         "layernorm": lambda: transformer.init(dataclasses.replace(
@@ -224,7 +256,8 @@ def _train_knob(name, tmp_path=None):
 def test_later_slice_knobs_raise_not_implemented(knob, monkeypatch,
                                                  tmp_path):
     if knob in PORTED_KNOBS:
-        # slice 11 ported these: each builds what the reference builds
+        # slices 11 and 12 ported these: each builds what the reference
+        # builds
         assert _train_knob(knob, tmp_path)()
         return
     if isinstance(knob, str):
