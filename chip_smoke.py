@@ -30,7 +30,17 @@ non-zero without the final result line):
    qwen3-moe-235b-a22b's q [8, 64, 2048, 128] on 4 KV heads (group 16)
    and grok-1-314b's [8, 48, 2048, 128] on 8 (group 6), causal, in bf16
    and float32, each timed (events and graph replay) beside its bound
-   and SDPA's time; ``decode_attention`` (the split kernel and
+   and SDPA's time; and at the enc-dec and dense variants' prefill
+   shapes, each timed:
+   whisper-large-v3's encoder [8, 20, 1500, 64] non-causal (bf16, checked
+   at batch 2; float32 at batch 2), its decoder's causal [8, 20, 448, 64]
+   and its cross-attention, 448 queries against 1,500 keys, non-causal
+   (bf16; float32 at batch 2), starcoder2-3b's [2, 24, 16384, 128] on 2
+   KV heads (group 12) in its window of 4,096 (checked at 1 x 8,192;
+   SDPA given the window as a boolean mask), group 12 x D 128 ragged
+   (bf16 and float32) and in a binding window of 512, and qwen2-vl-2b's
+   [8, 12, 2048, 128] on 2 KV heads; ``decode_attention`` (the split
+   kernel and
    its fold: partials and the normalized output) at [8, 16, 64] against
    a cache of S = 640 at kv_len 1 / 7 / 65 / 300 / 640 (bf16 and float32
    queries on a bf16 cache, and a float32 cache), the GQA group (32, 4),
@@ -40,8 +50,13 @@ non-zero without the final result line):
    kv_len), and the MoE serve paths' group 16 × D 128 against S = 160
    at kv_len 1 / 9 / 100 / 160 and group 6 × D 128 against S = 80 at
    kv_len 1 / 33 / 80 (100, 33 and 80 end in a ragged split), both
-   against S = 2,048 at kv_len 1,000; float32 outputs to 2e-5 absolute
-   + 1e-4 relative, bf16
+   against S = 2,048 at kv_len 1,000, and the variants' serve paths:
+   whisper's self-attention [8, 20, 64] against S = 128 and its
+   cross-attention against the 1,500 encoder keys (one split), group 12
+   x D 128 (starcoder2-3b) against S = 192 and against its full window
+   S_buf 4,096 at kv_len 1 / 4,096 (a wrapped ring: every slot valid),
+   group 6 x D 128 (qwen2-vl-2b) against S = 192; float32 outputs to
+   2e-5 absolute + 1e-4 relative, bf16
    outputs to one bf16 step of each value (2^-7 relative) + 2e-5;
    median times from CUDA events beside the bound, the plain version's
    time and SDPA's (timed for the table only; a decode row's time is
@@ -196,13 +211,14 @@ non-zero without the final result line):
     root mean square over the logits, that bf16 compute puts between the
     plain logits and float32's), and one profiled call;
 21. serve: the ``launch.serve`` loop (prefill by decode, then greedy
-    generation) on qwen1.5-0.5b at full size, batch 8, prompt 512,
-    gen 128: in float32 compute, every step's logits against the plain
-    step on the card fed the same tokens (each with its own bf16 cache)
-    to 1e-2, greedy tokens equal except at printed near-ties, and the
-    first generated token's logits against the prefill's to 5e-2; then
-    in the config's bf16, 24 decode launches per step, ms per step,
-    tok/s, peak memory and one profiled step's device busy share;
+    generation) on qwen1.5-0.5b at full size, batch 8: in float32
+    compute over the first 128 prompt tokens and 32 generated, every
+    step's logits against the plain step on the card fed the same
+    tokens (each with its own bf16 cache) to 1e-2, greedy tokens equal
+    except at printed near-ties, and the first generated token's logits
+    against the prefill's to 5e-2; then in the config's bf16 at prompt
+    512, gen 128, 24 decode launches per step, ms per step, tok/s, peak
+    memory and one profiled step's device busy share;
 22. ssm_prefill: falcon-mamba-7b at full width and depth (64 layers,
     7.27 B parameters, random weights from seed 0), ``make_prefill`` at
     batch 8 x 2,048 in bf16: 64 launches of the selective-scan kernel a
@@ -227,9 +243,10 @@ non-zero without the final result line):
     against the prefill's with a float32 cache (1e-3) and with the bf16
     cache (5e-2), then in bf16 12 decode launches a step, ms per step,
     tok/s, peak memory and one profiled step;
-26. ring: the smoke config (window 8) served through the kernels for 24
-    steps, so its 8-slot ring wraps twice, each step's float32 logits
-    against the plain step fed the same tokens (1e-4);
+26. ring: the smoke configs of recurrentgemma-9b and starcoder2-3b
+    (window 8) served through the kernels for 24 steps each, so each
+    8-slot ring wraps twice, each step's float32 logits against the
+    plain step fed the same tokens (1e-4);
 27. moe_init, moe_prefill, moe_serve: qwen3-moe-235b-a22b at full width
     (d 4,096, 64 heads on 4 KV heads, 128 experts, top 8, expert FF
     1,536, vocab 151,936), the depth cut from 94 to 4 layers
@@ -261,11 +278,39 @@ non-zero without the final result line):
     the trainer's layout rule (MPC-FSDP at one party), 3 steps at batch
     8 x 128 on the chunked scan under autograd: step wall, tok/s, peak
     memory, the share and reconstruct launches a step;
-30. summary: a ``{"kernels": [...]}`` line (the attention kernels also
-    at D = 256, under ``d256``, and at the MoE family's shapes, under
-    ``moe``), then the result line.
+30. encdec_init, encdec_prefill, encdec_serve: whisper-large-v3 at full
+    width and depth (32 encoder and 32 decoder layers, d 1,280, 20
+    heads, vocab 51,866, random weights from seed 0): ``make_prefill``
+    at batch 8 on seeded random frames [8, 1500, 1280] and 448 decoder
+    tokens in bf16, 96 flash launches a call (encoder, self- and
+    cross-attention), wall, tok/s, frames/s, peak memory, one profiled
+    call; at batch 2 the float32 logits against the plain path to 1e-3
+    and the bf16 logits within the bf16-vs-float32 RMS; then the
+    ``launch.serve`` loop at batch 8, prompt 64, gen 64, from the cross
+    K/V of the encoded frames: in float32 every step's logits against
+    the plain step fed the same tokens (1e-2), then in bf16 64 decode
+    launches a step (self- and cross-attention), ms a step, tok/s and
+    one profiled step;
+31. vlm_init, vlm_prefill, vlm_serve: qwen2-vl-2b at full width and
+    depth (28 layers) fed seeded random embeds: prefill at batch
+    8 x 2,048 (28 flash launches a call), the same checks at batch 2;
+    serving at batch 8, 128 prompt steps and 64 generated, embeds at
+    every step, bf16 timed (28 decode launches a step), after a float32
+    check of each step of a 32 + 32-step loop;
+32. window_init, window_prefill, window_serve: starcoder2-3b at full
+    width and depth (30 layers, layernorm, biased gelu MLP, window
+    4,096): prefill at 2 x 16,384 in bf16, where the window binds (30
+    flash launches a call), its checks at 1 x 8,192; serving at batch 8,
+    prompt 128, gen 64, bf16 timed, after the float32 check of a
+    32 + 32-step loop;
+33. summary: a ``{"kernels": [...]}`` line (the attention kernels also
+    at D = 256, under ``d256``, at the MoE family's shapes, under
+    ``moe``, and at whisper-large-v3's, qwen2-vl-2b's and
+    starcoder2-3b's, under ``encdec``, ``vlm`` and ``window``, each
+    with its own path's launches), then the result line.
 
-Every phase prints one JSON object per line.  The script imports no JAX
+Every phase prints one JSON object per line, with the seconds since the
+script started (``elapsed_s``).  The script imports no JAX
 and nothing of the JAX package.  It needs one card and no network.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
@@ -315,7 +360,13 @@ LADDER_STEP_OPS = QMUL_OPS + 3
 GPOW_OPS = 2 + 30 * LADDER_STEP_OPS
 
 
+#: the script's start, for the seconds each phase's lines report
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2729,10 +2780,38 @@ FLASH_CASES = [
     ("moe_prefill_f32", 8, 64, 4, 2048, 2048, 128, True, 0, "float32"),
     ("grok_prefill", 8, 48, 8, 2048, 2048, 128, True, 0, "bfloat16"),
     ("grok_prefill_f32", 8, 48, 8, 2048, 2048, 128, True, 0, "float32"),
+    # whisper-large-v3's prefill at batch 8: the encoder, non-causal over
+    # 1,500 frames (the last 64-key tile holds 28 keys, in the middle of
+    # a row), in bf16 and float32; the decoder's causal self-attention
+    # over 448 tokens; the cross-attention, non-causal, 448 queries
+    # against 1,500 keys
+    ("whisper_enc", 8, 20, 20, 1500, 1500, 64, False, 0, "bfloat16"),
+    ("whisper_enc_f32", 2, 20, 20, 1500, 1500, 64, False, 0, "float32"),
+    ("whisper_dec", 8, 20, 20, 448, 448, 64, True, 0, "bfloat16"),
+    ("whisper_cross", 8, 20, 20, 448, 1500, 64, False, 0, "bfloat16"),
+    ("whisper_cross_f32", 2, 20, 20, 448, 1500, 64, False, 0, "float32"),
+    # starcoder2-3b's prefill at 2 x 16,384: 24 query heads on 2 KV heads
+    # (group 12), D 128, window 4,096 binding on three quarters of the
+    # rows; group 12 alone, ragged, in bf16 and float32
+    ("sc2_prefill", 2, 24, 2, 16384, 16384, 128, True, 4096, "bfloat16"),
+    ("g12_d128_bf16", 2, 24, 2, 1000, 1000, 128, True, 0, "bfloat16"),
+    ("g12_d128", 2, 24, 2, 1000, 1000, 128, True, 0, "float32"),
+    ("g12_window_f32", 1, 24, 2, 2048, 2048, 128, True, 512, "float32"),
+    # qwen2-vl-2b's prefill at batch 8 x 2,048: 12 query heads on 2 KV
+    # heads (group 6), D 128, causal
+    ("vlm_prefill", 8, 12, 2, 2048, 2048, 128, True, 0, "bfloat16"),
 ]
 #: the flash cases timed (events and graph replay, bound, SDPA)
 FLASH_TIMED = ("prefill", "rg_prefill", "moe_prefill", "moe_prefill_f32",
-               "grok_prefill", "grok_prefill_f32")
+               "grok_prefill", "grok_prefill_f32", "whisper_enc",
+               "whisper_dec", "whisper_cross", "sc2_prefill", "vlm_prefill")
+#: cases checked against the plain version on a cut of their inputs (the
+#: plain version's float32 scores of the whole case would not fit: 51.5 GB
+#: at starcoder2-3b's 2 x 24 x 16,384^2), timed whole: batch, query and
+#: key rows of the cut (the first rows of a causal case see only the
+#: first keys, so the cut is the same function)
+FLASH_CHECKED_AT = {"whisper_enc": (2, 1500, 1500),
+                    "sc2_prefill": (1, 8192, 8192)}
 
 
 def _to_query_heads(t, hq: int):
@@ -2745,9 +2824,22 @@ def _to_query_heads(t, hq: int):
     return t.repeat_interleave(hq // hkv, dim=1)
 
 
+def _sdpa_mask(sq: int, skv: int, causal: bool, window: int) -> dict:
+    """SDPA's keywords for the kernel's mask: none, ``is_causal`` (SDPA
+    aligns its diagonal top-left, the kernel bottom-right: the same where
+    Sq = Skv), or an explicit boolean mask where a window binds."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+    binds = 0 < window < skv
+    if not causal and not binds:
+        return {}
+    if causal and sq == skv and not binds:
+        return {"is_causal": True}
+    return {"attn_mask": visible_mask(sq, skv, causal, window, "cuda")}
+
+
 def phase_flash_kernel() -> dict:
     """``flash_attention`` against its plain version on the same CUDA
-    tensors; returns the timing rows of the two prefill shapes, by case
+    tensors; returns the timing rows of the main paths' shapes, by case
     name."""
     import torch
     import torch.nn.functional as F
@@ -2763,9 +2855,13 @@ def phase_flash_kernel() -> dict:
                         ).to(dtype)
         v = torch.randn((b, hkv, skv, d), device="cuda", generator=gen
                         ).to(dtype)
-        got = flash_attention(q, k, v, causal=causal, window=window)
+        cb, csq, cskv = FLASH_CHECKED_AT.get(name, (b, sq, skv))
+        qc, kc, vc = (q[:cb, :, :csq].contiguous(),
+                      k[:cb, :, :cskv].contiguous(),
+                      v[:cb, :, :cskv].contiguous())
+        got = flash_attention(qc, kc, vc, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = attention_ref(q, k, v, causal=causal, window=window)
+        want = attention_ref(qc, kc, vc, causal=causal, window=window)
         require(got.dtype == dtype, f"flash {name}: output {got.dtype}")
         atol, rtol = ((F32_ATOL, F32_RTOL) if dtype == torch.float32
                       else (F32_ATOL, BF16_STEP_RTOL))
@@ -2779,6 +2875,9 @@ def phase_flash_kernel() -> dict:
                  "shape": [b, hq, hkv, sq, skv, d], "causal": causal,
                  "window": window, "dtype": dt, "max_abs_err": err,
                  "tol": [atol, rtol], "tol_share": share}
+        if name in FLASH_CHECKED_AT:
+            entry["checked_shape"] = [cb, hq, hkv, csq, cskv, d]
+        del got
         if name in FLASH_TIMED:
             elt = q.element_size()
             nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
@@ -2789,20 +2888,24 @@ def phase_flash_kernel() -> dict:
                                if dtype == torch.bfloat16 else FP32_OPS_PER_S)
             kernel = (lambda: flash_attention(q, k, v, causal=causal,
                                               window=window))
-            # Sq = Skv and a window of at least Skv: SDPA's is_causal mask
-            # is the same mask; its k and v are expanded to Hq heads
+            # SDPA under the same mask (_sdpa_mask), its k and v expanded
+            # to Hq heads; the plain version at the checked shape (the
+            # whole case's where it is not cut)
             ke, ve = _to_query_heads(k, hq), _to_query_heads(v, hq)
+            mask = _sdpa_mask(sq, skv, causal, window)
             entry.update(
                 ms=cuda_ms(kernel, 10), graph_ms=graph_ms(kernel, 3, 5),
                 plain_ms=cuda_ms(lambda: attention_ref(
-                    q, k, v, causal=causal, window=window), 3),
+                    qc, kc, vc, causal=causal, window=window), 3),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, ke, ve, is_causal=True), 10),
+                    q, ke, ve, **mask), 10),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+            if name in FLASH_CHECKED_AT:
+                entry["plain_ms_at"] = entry["checked_shape"]
             rows[name] = entry
-            del ke, ve
+            del ke, ve, mask
         emit(entry)
-        del q, k, v, got
+        del q, k, v, qc, kc, vc
     torch.cuda.empty_cache()
     return rows
 
@@ -2851,12 +2954,40 @@ DECODE_CASES = [
     (8, 48, 8, 80, 128, 80, "bfloat16", "bfloat16"),
     (8, 48, 8, 80, 128, 80, "float32", "bfloat16"),
     (8, 48, 8, 2048, 128, 1000, "float32", "float32"),
+    # whisper-large-v3's serve path, 20 heads, D 64 (group 1): the
+    # self-attention against S = 128 (prompt 64 + gen 64) and the
+    # cross-attention against the 1,500 encoder keys (one split at any
+    # kv_len: 160 blocks each reading all 1,500 keys)
+    (8, 20, 20, 128, 64, 1, "bfloat16", "bfloat16"),
+    (8, 20, 20, 128, 64, 128, "bfloat16", "bfloat16"),
+    (8, 20, 20, 1500, 64, 1500, "bfloat16", "bfloat16"),
+    (8, 20, 20, 1500, 64, 1500, "float32", "bfloat16"),
+    (8, 20, 20, 1500, 64, 1500, "float32", "float32"),
+    # starcoder2-3b's, 24 query heads on 2 KV heads (group 12), D 128,
+    # against S = 192 (prompt 128 + gen 64), and its full window S_buf
+    # 4,096 at kv_len 1 and 4,096 (a wrapped ring: every slot valid)
+    (8, 24, 2, 192, 128, 1, "bfloat16", "bfloat16"),
+    (8, 24, 2, 192, 128, 100, "bfloat16", "bfloat16"),
+    (8, 24, 2, 192, 128, 192, "bfloat16", "bfloat16"),
+    (8, 24, 2, 192, 128, 192, "float32", "bfloat16"),
+    (8, 24, 2, 4096, 128, 1, "bfloat16", "bfloat16"),
+    (8, 24, 2, 4096, 128, 4096, "bfloat16", "bfloat16"),
+    (8, 24, 2, 4096, 128, 4096, "float32", "float32"),
+    # qwen2-vl-2b's, 12 query heads on 2 KV heads (group 6), D 128,
+    # against S = 192
+    (8, 12, 2, 192, 128, 192, "bfloat16", "bfloat16"),
+    (8, 12, 2, 192, 128, 77, "float32", "bfloat16"),
 ]
 #: the timed decode rows, (Hq, D, kv_len) of the bf16 serve shapes' longest
 #: steps: qwen's, recurrentgemma-9b's full window (the steady state of
-#: long serving), qwen3-moe-235b-a22b's and grok-1-314b's
+#: long serving), qwen3-moe-235b-a22b's and grok-1-314b's; whisper's
+#: self- and cross-attention, starcoder2-3b's (and its full window) and
+#: qwen2-vl-2b's
 DECODE_TIMED = {(16, 64, 640): "qwen", (16, 256, 2048): "rg",
-                (64, 128, 160): "moe", (48, 128, 80): "grok"}
+                (64, 128, 160): "moe", (48, 128, 80): "grok",
+                (20, 64, 128): "whisper_self", (20, 64, 1500): "whisper_cross",
+                (24, 128, 192): "sc2", (24, 128, 4096): "sc2_window",
+                (12, 128, 192): "vlm"}
 
 
 def phase_decode_kernel() -> dict:
@@ -3069,6 +3200,10 @@ def phase_prefill() -> int:
 #: prefill: batch x prompt; serve: batch, prompt, generated tokens
 PREFILL_SHAPE = (8, 2048)
 SERVE_SHAPE = (8, 512, 128)
+#: the float32 serve check's prompt and generated steps (the first of
+#: the bf16 run's prompt): at 640 steps, each run twice in float32, it
+#: took ~45 s of the script's time limit
+SERVE_CHECK_STEPS = (128, 32)
 #: float32 prefill logits, flash against plain: the same function with
 #: sums in another order, through 24 layers (logits of order 1)
 PREFILL_F32_TOL = 1e-3
@@ -3084,9 +3219,10 @@ SERVE_VS_PREFILL_TOL = 5e-2
 
 
 def phase_serve() -> int:
-    """The ``launch.serve`` loop on qwen1.5-0.5b at full size, batch 8,
-    prompt 512, gen 128: the float32 check, then the bf16 (config) run
-    with its times; returns the decode launches of the bf16 run."""
+    """The ``launch.serve`` loop on qwen1.5-0.5b at full size: the float32
+    check (SERVE_CHECK_STEPS), then the bf16 (config) run at batch 8,
+    prompt 512, gen 128 with its times; returns the decode launches of
+    the bf16 run."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3106,7 +3242,9 @@ def phase_serve() -> int:
     # float32 compute: each kernel step against the plain step, fed the
     # kernel loop's tokens, with a cache of its own
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    plain_cache = transformer.init_cache(cfg32, b, kv_len)
+    cplen, cgen = SERVE_CHECK_STEPS
+    cprompt = prompt[:, :cplen]
+    plain_cache = transformer.init_cache(cfg32, b, cplen + cgen)
     stats = {"max_err": 0.0, "near_ties": 0, "near_tie_steps": 0,
              "steps": 0, "first_logits": None}
 
@@ -3129,24 +3267,24 @@ def phase_serve() -> int:
         stats["near_ties"] += int((differ & tie).sum())
         stats["near_tie_steps"] += int(tie.any())
         stats["steps"] += 1
-        if dbatch["index"] == plen - 1:
+        if dbatch["index"] == cplen - 1:
             stats["first_logits"] = logits.clone()
 
     with torch.no_grad():
-        res32 = generate(cfg32, params, prompt, gen, observe=observe)
-    require(stats["steps"] == kv_len, f"serve float32: {stats['steps']} "
-                                      "steps observed")
-    pre = make_prefill(cfg32)(params, {"tokens": prompt})
+        res32 = generate(cfg32, params, cprompt, cgen, observe=observe)
+    require(stats["steps"] == cplen + cgen,
+            f"serve float32: {stats['steps']} steps observed")
+    pre = make_prefill(cfg32)(params, {"tokens": cprompt})
     err_pre = float((stats["first_logits"] - pre).abs().max())
     require(err_pre <= SERVE_VS_PREFILL_TOL,
             f"serve float32: the first generated token's logits differ from "
             f"the prefill's by {err_pre}")
-    require(res32["tokens"].shape == (b, gen),
+    require(res32["tokens"].shape == (b, cgen),
             f"serve float32: tokens {res32['tokens'].shape}")
     del plain_cache, res32, pre
     emit({"phase": "serve_check", "arch": "qwen1.5-0.5b",
           "compute_dtype": "float32", "cache_dtype": "bfloat16", "batch": b,
-          "prompt": plen, "gen": gen, "steps": stats["steps"],
+          "prompt": cplen, "gen": cgen, "steps": stats["steps"],
           "logits_max_abs_err_vs_plain": stats["max_err"],
           "tol": SERVE_F32_TOL,
           "greedy_tokens_differing_at_near_ties": stats["near_ties"],
@@ -3891,54 +4029,65 @@ def phase_hybrid_serve(cfg, params) -> int:
     return launches
 
 
-def phase_ring() -> int:
-    """The ring-buffer KV cache on the card: recurrentgemma-9b's smoke
-    config (window 8) served through the kernels for 24 steps, each
-    step's float32 logits against the plain step fed the same tokens;
-    returns the decode-attention launches."""
+#: the configs whose smoke size (window 8) phase ``ring`` wraps
+RING_ARCHS = ("recurrentgemma-9b", "starcoder2-3b")
+
+
+def phase_ring() -> dict:
+    """The ring-buffer KV cache on the card: recurrentgemma-9b's and
+    starcoder2-3b's smoke configs (window 8) each served through the
+    kernels for 24 steps, each step's float32 logits against the plain
+    step fed the same tokens; returns the decode-attention launches by
+    arch."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
-                              compute_dtype="float32")
-    b = 2
-    params = transformer.init(cfg, seed=0, device="cuda").params()
-    prompt = np.random.RandomState(1).randint(0, cfg.vocab,
-                                              size=(b, RING_PROMPT))
-    plain_cache = transformer.init_cache(cfg, b, RING_STEPS)
-    stats = {"max_err": 0.0, "steps": 0}
+    out = {}
+    for arch in RING_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  compute_dtype="float32")
+        b = 2
+        params = transformer.init(cfg, seed=0, device="cuda").params()
+        prompt = np.random.RandomState(1).randint(0, cfg.vocab,
+                                                  size=(b, RING_PROMPT))
+        plain_cache = transformer.init_cache(cfg, b, RING_STEPS)
+        stats = {"max_err": 0.0, "steps": 0}
 
-    def observe(dbatch, logits):
-        want, _ = transformer.decode_step(params, plain_cache, dbatch, cfg,
-                                          impl="dense")
-        err = float((logits - want).abs().max())
-        require(bool(torch.isfinite(logits).all()) and err <= RING_TOL,
-                f"ring step {dbatch['index']}: logits differ from the plain "
-                f"step by {err}")
-        stats["max_err"] = max(stats["max_err"], err)
-        stats["steps"] += 1
+        def observe(dbatch, logits):
+            want, _ = transformer.decode_step(params, plain_cache, dbatch,
+                                              cfg, impl="dense")
+            err = float((logits - want).abs().max())
+            require(bool(torch.isfinite(logits).all()) and err <= RING_TOL,
+                    f"ring {arch} step {dbatch['index']}: logits differ "
+                    f"from the plain step by {err}")
+            stats["max_err"] = max(stats["max_err"], err)
+            stats["steps"] += 1
 
-    dispatch.reset_launches()
-    with torch.no_grad():
-        res = generate(cfg, params, prompt, RING_STEPS - RING_PROMPT,
-                       observe=observe)
-    launches = dispatch.launches["repro_decode_attention"]
-    s_buf = res["cache"]["groups"]["b2_attn"]["k"].shape[3]
-    require(stats["steps"] == RING_STEPS and s_buf == cfg.window
-            and RING_STEPS > 2 * s_buf
-            and launches == _layer_kinds(cfg)["attn"] * RING_STEPS
-            and sum(dispatch.launches.values()) == launches,
-            f"ring: {stats['steps']} steps over {s_buf} slots, launches "
-            f"{dispatch.launches}")
-    emit({"phase": "ring", "arch": cfg.name + " (smoke)",
-          "window": cfg.window, "cache_slots": s_buf, "steps": RING_STEPS,
-          "ring_wraps": RING_STEPS // s_buf - 1,
-          "logits_max_abs_err_vs_plain": stats["max_err"], "tol": RING_TOL,
-          "decode_launches": launches})
-    return launches
+        dispatch.reset_launches()
+        with torch.no_grad():
+            res = generate(cfg, params, prompt, RING_STEPS - RING_PROMPT,
+                           observe=observe)
+        launches = dispatch.launches["repro_decode_attention"]
+        attn = next(name for name in res["cache"]["groups"]
+                    if name.endswith("_attn"))
+        s_buf = res["cache"]["groups"][attn]["k"].shape[3]
+        require(stats["steps"] == RING_STEPS and s_buf == cfg.window
+                and RING_STEPS > 2 * s_buf
+                and launches == _layer_kinds(cfg)["attn"] * RING_STEPS
+                and sum(dispatch.launches.values()) == launches,
+                f"ring {arch}: {stats['steps']} steps over {s_buf} slots, "
+                f"launches {dispatch.launches}")
+        emit({"phase": "ring", "arch": cfg.name + " (smoke)",
+              "window": cfg.window, "cache_slots": s_buf,
+              "steps": RING_STEPS, "ring_wraps": RING_STEPS // s_buf - 1,
+              "logits_max_abs_err_vs_plain": stats["max_err"],
+              "tol": RING_TOL, "decode_launches": launches})
+        out[arch] = launches
+        del params, plain_cache, res
+    return out
 
 
 def phase_hybrid() -> dict:
@@ -3971,7 +4120,6 @@ def phase_hybrid() -> dict:
     launches["repro_decode_attention"] = phase_hybrid_serve(cfg, params)
     del model, params
     torch.cuda.empty_cache()
-    phase_ring()
     return launches
 
 
@@ -4331,6 +4479,396 @@ def phase_hybrid_train() -> dict:
     return launches
 
 
+#: whisper-large-v3 (32 + 32 layers): prefill batch, decoder tokens (its
+#: 448-token context) against the config's 1,500 frames; serve batch,
+#: prompt, generated tokens
+ENCDEC_PREFILL_SHAPE = (8, 448)
+ENCDEC_SERVE_SHAPE = (8, 64, 64)
+#: qwen2-vl-2b (28 layers): prefill batch x embeds; serve batch, prompt
+#: steps, generated tokens, every step fed seeded random embeds
+VLM_PREFILL_SHAPE = (8, 2048)
+VLM_SERVE_SHAPE = (8, 128, 64)
+#: starcoder2-3b (30 layers): prefill batch x prompt, so that its window
+#: of 4,096 binds; serve batch, prompt, generated tokens
+WINDOW_PREFILL_SHAPE = (2, 16384)
+WINDOW_SERVE_SHAPE = (8, 128, 64)
+#: qwen2-vl-2b's and starcoder2-3b's float32 serve checks run the first
+#: prompt and generated steps of these (whisper's runs the whole loop):
+#: the script's time limit, and a 192-step cache that neither ring nor
+#: window reaches at full size
+VARIANT_F32_CHECK_STEPS = (32, 32)
+#: the prefill checks against the plain path run at this (batch, length):
+#: the plain attention materializes float32 scores ([1, 24, 8192^2]:
+#: 6.4 GB a layer for starcoder2-3b); whisper's at batch 2 of its shape
+DENSE_VARIANT_CHECK = {"whisper-large-v3": (2, 448),
+                       "qwen2-vl-2b": (2, 2048),
+                       "starcoder2-3b": (1, 8192)}
+VARIANT_PROFILE_NAMES = ("flash_attention_mma_kernel",
+                         "flash_attention_kernel", "decode_attention_kernel",
+                         "decode_attention_fold_kernel", "nvjet", "gemm",
+                         "elementwise", "copy", "reduce")
+
+
+def _prefill_checks(cfg, params, sub, what: str) -> dict:
+    """The kernel path against the plain path on ``sub``: float32 logits
+    to PREFILL_F32_TOL, bf16 logits within the bf16-vs-float32 RMS."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.steps import make_prefill
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    kern32 = make_prefill(cfg32)(params, sub)
+    plain32 = make_prefill(cfg32, attn_impl="dense")(params, sub)
+    err32 = float((kern32 - plain32).abs().max())
+    require(bool(torch.isfinite(kern32).all()) and err32 <= PREFILL_F32_TOL,
+            f"{what} float32: kernel vs plain logits differ by {err32}")
+    del kern32
+    torch.cuda.empty_cache()
+    kern = make_prefill(cfg)(params, sub)
+    plain = make_prefill(cfg, attn_impl="dense")(params, sub)
+    bf16_noise = {"max_abs": float((plain - plain32).abs().max()),
+                  "rms": _rms(plain - plain32)}
+    err = {"max_abs": float((kern - plain).abs().max()),
+           "rms": _rms(kern - plain)}
+    require(err["rms"] <= bf16_noise["rms"],
+            f"{what} bf16: kernel vs plain logits differ by {err}, more "
+            f"than bf16 compute moves them ({bf16_noise})")
+    torch.cuda.empty_cache()
+    return {"f32_logits_max_abs_err_vs_plain": err32,
+            "f32_tol": PREFILL_F32_TOL, "logits_err_vs_plain": err,
+            "bf16_vs_f32_logits": bf16_noise}
+
+
+def _variant_prefill(cfg, params, batch, calls: int, what: str) -> dict:
+    """``make_prefill`` on ``batch`` in the config's bf16, timed over
+    ``calls`` calls with its flash launches (and no other kernel's), and
+    one profiled call."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import make_prefill
+    prefill = make_prefill(cfg)
+    prefill(params, batch)  # first call: the kernels' first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    walls = []
+    for _ in range(calls):
+        wall, logits = _timed(lambda: prefill(params, batch))
+        walls.append(wall)
+    flash = dispatch.launches["repro_flash_attention"]
+    require(flash > 0 and sum(dispatch.launches.values()) == flash,
+            f"{what}: launches {dispatch.launches} over {calls} calls")
+    peak = torch.cuda.max_memory_allocated()
+    b = logits.shape[0]
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"{what}: logits are not finite float32 [{b}, vocab]")
+    del logits
+    prof = _profile(lambda: prefill(params, batch), VARIANT_PROFILE_NAMES)
+    torch.cuda.empty_cache()
+    return {"flash_launches": flash, "wall_s": walls, "peak_mem_bytes": peak,
+            "profiled_call": prof}
+
+
+def _variant_serve_check(cfg32, params, prompt, gen: int, plain_cache,
+                         what: str, **inputs) -> dict:
+    """The ``launch.serve`` loop in float32 compute: each step's logits
+    against the plain step (``impl="dense"``, a cache of its own) fed the
+    same inputs, to SERVE_F32_TOL; greedy tokens equal except at
+    near-ties."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.registry import get_api
+    api = get_api(cfg32)
+    stats = {"max_err": 0.0, "near_ties": 0, "steps": 0}
+
+    def observe(dbatch, logits):
+        want, _ = api.decode_step(params, plain_cache, dbatch, cfg32,
+                                  impl="dense")
+        err = float((logits - want).abs().max())
+        require(bool(torch.isfinite(logits).all()) and err <= SERVE_F32_TOL,
+                f"{what} float32 step {dbatch['index']}: logits differ from "
+                f"the plain step by {err}")
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_F32_TOL
+        differ = logits.argmax(-1) != want.argmax(-1)
+        require(not bool((differ & ~tie).any()),
+                f"{what} float32 step {dbatch['index']}: a greedy token "
+                "differs from the plain step's away from a near-tie")
+        stats["max_err"] = max(stats["max_err"], err)
+        stats["near_ties"] += int((differ & tie).sum())
+        stats["steps"] += 1
+
+    with torch.no_grad():
+        res = generate(cfg32, params, prompt, gen, observe=observe, **inputs)
+    b, plen = prompt.shape
+    require(stats["steps"] == plen + gen
+            and res["tokens"].shape == (b, gen),
+            f"{what} float32: {stats['steps']} steps observed")
+    return {"steps": stats["steps"],
+            "logits_max_abs_err_vs_plain": stats["max_err"],
+            "tol": SERVE_F32_TOL,
+            "greedy_tokens_differing_at_near_ties": stats["near_ties"]}
+
+
+def _variant_serve(cfg, params, prompt, gen: int, what: str,
+                   **inputs) -> dict:
+    """The ``launch.serve`` loop in the config's bf16, timed, with its
+    decode launches (and no other kernel's) and one profiled step, whose
+    split-kernel and fold launches must be the plan's."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.decode_attention.kernel import split_plan
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    b, plen = prompt.shape
+    kv_len = plen + gen
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = generate(cfg, params, prompt, gen, **inputs)
+    launches = dispatch.launches["repro_decode_attention"]
+    per_step = (2 if cfg.enc_dec else 1) * cfg.n_layers
+    require(launches == per_step * kv_len
+            and sum(dispatch.launches.values()) == launches,
+            f"{what}: launches {dispatch.launches} over {kv_len} steps")
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    require(toks.shape == (b, gen) and toks.min() >= 0
+            and toks.max() < cfg.vocab, f"{what}: tokens {toks.shape}")
+    step = make_serve_step(cfg, kv_len, b)
+    cache = res["cache"]
+    last = {"tokens": torch.from_numpy(toks[:, -1:]).cuda(),
+            "index": kv_len - 1}
+    if cfg.frontend == "embeddings":
+        last = {"embeds": inputs["embeds"][:, -1:], "index": kv_len - 1}
+    dispatch.reset_launches()
+    prof = _profile(lambda: step(params, cache, last), VARIANT_PROFILE_NAMES)
+    # the self-attention's plan at the last step (and the cross-attention's
+    # at every encoder key), each layer once: the step launched the split
+    # kernel once a layer, and the trace shows the fold where a plan has
+    # several splits and nowhere else.  Late in a long run the tracer
+    # drops a few kernel records (on an H100: one decode launch of a
+    # step's 64 missing from its trace while the wrappers counted 64), so
+    # the traced counts may fall short of the launches, never above them
+    group = cfg.n_heads // cfg.n_kv_heads
+    plans = [split_plan(b, cfg.n_kv_heads, min(kv_len, cfg.window or kv_len),
+                        group)[0]]
+    if cfg.enc_dec:
+        plans.append(split_plan(b, cfg.n_heads, cfg.enc_seq, 1)[0])
+    want = {"decode_attention_kernel": cfg.n_layers * len(plans),
+            "decode_attention_fold_kernel":
+                cfg.n_layers * sum(p > 1 for p in plans)}
+    got = {n: prof["kernel_launches"][n] for n in want}
+    require(dispatch.launches["repro_decode_attention"]
+            == want["decode_attention_kernel"]
+            and all(got[n] <= want[n] for n in want)
+            and (got["decode_attention_fold_kernel"] > 0)
+            == (want["decode_attention_fold_kernel"] > 0),
+            f"{what}: the profiled step launched "
+            f"{dispatch.launches['repro_decode_attention']}, traced {got}, "
+            f"expected {want} (splits {plans})")
+    # what a step spends casting the embedding table to bf16, as the
+    # reference does on every step: once to gather the step's rows, and
+    # once more for a tied head (whisper-large-v3, qwen2-vl-2b)
+    table = params["embed"]["table"]
+    out = {"decode_launches_per_step": launches // kv_len,
+           "decode_launches": launches, "splits": plans,
+           "traced_launches_missing": {n: want[n] - got[n] for n in want},
+           "table_cast_ms": cuda_ms(lambda: table.to(torch.bfloat16), 5),
+           "table_casts_per_step": 2 if cfg.tie_embeddings else 1,
+           "prompt_steps_s": res["prompt_s"], "gen_s": res["gen_s"],
+           "ms_per_decode_step": res["gen_s"] / gen * 1e3,
+           "gen_tok_per_s": b * gen / res["gen_s"], "peak_mem_bytes": peak,
+           "sample_row": toks[0][:16].tolist(), "profiled_step": prof}
+    del res, cache
+    return out
+
+
+def _variant_init(arch: str, phase: str):
+    """``arch`` at full width and depth from seed 0; emits its parameter
+    counts and init time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_api
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = get_api(cfg).init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    emit({"phase": phase, "arch": arch, "layers": cfg.n_layers,
+          "enc_layers": cfg.n_enc_layers, "params": n_params,
+          "param_count_analytic": cfg.param_count(),
+          "param_bytes": 4 * n_params, "init_s": time.perf_counter() - t0,
+          "allocated_before_init_bytes": before,
+          "init_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    return cfg, model
+
+
+def phase_encdec() -> dict:
+    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, random weights from seed 0): prefill at batch 8 over
+    [8, 1500, 1280] frames and 448 decoder tokens, then serving from the
+    cross K/V of the encoded frames; returns the attention kernels'
+    launches on this path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import encdec
+    cfg, model = _variant_init("whisper-large-v3", "encdec_init")
+    params = model.params()
+    (b, s), calls = ENCDEC_PREFILL_SHAPE, 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn((b, cfg.enc_seq, cfg.d_model), device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    batch = {"frames": frames, "tokens": tokens}
+    pre = _variant_prefill(cfg, params, batch, calls, "encdec_prefill")
+    want = 3 * cfg.n_layers * calls  # encoder, self- and cross-attention
+    require(pre["flash_launches"] == want,
+            f"encdec_prefill: {pre['flash_launches']} flash launches, "
+            f"expected {want}")
+    cb, _ = DENSE_VARIANT_CHECK[cfg.name]
+    checks = _prefill_checks(cfg, params, {"frames": frames[:cb],
+                                           "tokens": tokens[:cb]},
+                             "encdec_prefill")
+    emit({"phase": "encdec_prefill", "arch": cfg.name,
+          "layers": [cfg.n_enc_layers, cfg.n_layers], "batch": b,
+          "frames": cfg.enc_seq, "tokens": s, "compute_dtype": "bfloat16",
+          "flash_launches_per_call": pre["flash_launches"] // calls,
+          "wall_s": pre["wall_s"],
+          "tok_per_s": [b * s / w for w in pre["wall_s"]],
+          "frames_per_s": [b * cfg.enc_seq / w for w in pre["wall_s"]],
+          "peak_mem_bytes": pre["peak_mem_bytes"], "check_batch": cb,
+          **checks, "profiled_call": pre["profiled_call"]})
+
+    (b, plen, n_gen) = ENCDEC_SERVE_SHAPE
+    kv_len = plen + n_gen
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab, size=(b, plen))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        enc32 = encdec.encode(params, frames[:b], cfg32)
+        plain_cache = encdec.init_cache(params, cfg32, b, kv_len,
+                                        enc_out=enc32)
+        check = _variant_serve_check(cfg32, params, prompt, n_gen,
+                                     plain_cache, "encdec_serve",
+                                     enc_out=enc32)
+        del enc32, plain_cache
+        enc16 = encdec.encode(params, frames[:b], cfg)
+    serve = _variant_serve(cfg, params, prompt, n_gen, "encdec_serve",
+                           enc_out=enc16)
+    emit({"phase": "encdec_serve", "arch": cfg.name,
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": n_gen, "cross_keys": cfg.enc_seq,
+          "cache": "cross K/V of the encoded frames", **serve,
+          "f32_check": check})
+    del model, params, frames, enc16
+    torch.cuda.empty_cache()
+    return {"repro_flash_attention": pre["flash_launches"],
+            "repro_decode_attention": serve["decode_launches"]}
+
+
+def phase_vlm() -> dict:
+    """qwen2-vl-2b at full width and depth (28 layers, random weights
+    from seed 0), fed seeded random embeds: prefill at batch 8 x 2,048,
+    then serving, 128 prompt steps and 64 generated; returns the
+    attention kernels' launches on this path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    cfg, model = _variant_init("qwen2-vl-2b", "vlm_init")
+    params = model.params()
+    (b, s), calls = VLM_PREFILL_SHAPE, 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    embeds = torch.randn((b, s, cfg.d_model), device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    pre = _variant_prefill(cfg, params, {"embeds": embeds}, calls,
+                           "vlm_prefill")
+    require(pre["flash_launches"] == cfg.n_layers * calls,
+            f"vlm_prefill: {pre['flash_launches']} flash launches")
+    cb, cs = DENSE_VARIANT_CHECK[cfg.name]
+    checks = _prefill_checks(cfg, params, {"embeds": embeds[:cb, :cs]},
+                             "vlm_prefill")
+    emit({"phase": "vlm_prefill", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": b, "prompt": s, "compute_dtype": "bfloat16",
+          "flash_launches_per_call": pre["flash_launches"] // calls,
+          "wall_s": pre["wall_s"],
+          "tok_per_s": [b * s / w for w in pre["wall_s"]],
+          "peak_mem_bytes": pre["peak_mem_bytes"], "check_batch": cb,
+          **checks, "profiled_call": pre["profiled_call"]})
+    del embeds
+
+    (b, plen, n_gen) = VLM_SERVE_SHAPE
+    kv_len = plen + n_gen
+    prompt = np.zeros((b, plen), np.int64)  # not read: embeds are fed
+    step_embeds = torch.randn((b, kv_len, cfg.d_model), device="cuda",
+                              generator=gen).to(torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cp, cg = VARIANT_F32_CHECK_STEPS
+    check = _variant_serve_check(
+        cfg32, params, prompt[:, :cp], cg, transformer.init_cache(
+            cfg32, b, cp + cg), "vlm_serve", embeds=step_embeds)
+    serve = _variant_serve(cfg, params, prompt, n_gen, "vlm_serve",
+                           embeds=step_embeds)
+    emit({"phase": "vlm_serve", "arch": cfg.name,
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": n_gen, "inputs": "seeded random embeds every step",
+          **serve, "f32_check": check})
+    del model, params, step_embeds
+    torch.cuda.empty_cache()
+    return {"repro_flash_attention": pre["flash_launches"],
+            "repro_decode_attention": serve["decode_launches"]}
+
+
+def phase_window() -> dict:
+    """starcoder2-3b at full width and depth (30 layers, random weights
+    from seed 0): prefill at 2 x 16,384 in bf16, where its window of
+    4,096 binds, then serving at batch 8; returns the attention kernels'
+    launches on this path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    cfg, model = _variant_init("starcoder2-3b", "window_init")
+    params = model.params()
+    (b, s), calls = WINDOW_PREFILL_SHAPE, 2
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, size=(b, s))).cuda()
+    pre = _variant_prefill(cfg, params, {"tokens": tokens}, calls,
+                           "window_prefill")
+    require(pre["flash_launches"] == cfg.n_layers * calls,
+            f"window_prefill: {pre['flash_launches']} flash launches")
+    cb, cs = DENSE_VARIANT_CHECK[cfg.name]
+    checks = _prefill_checks(cfg, params, {"tokens": tokens[:cb, :cs]},
+                             "window_prefill")
+    emit({"phase": "window_prefill", "arch": cfg.name,
+          "layers": cfg.n_layers, "window": cfg.window, "batch": b,
+          "prompt": s, "compute_dtype": "bfloat16",
+          "flash_launches_per_call": pre["flash_launches"] // calls,
+          "wall_s": pre["wall_s"],
+          "tok_per_s": [b * s / w for w in pre["wall_s"]],
+          "peak_mem_bytes": pre["peak_mem_bytes"],
+          "check_shape": [cb, cs], **checks,
+          "profiled_call": pre["profiled_call"]})
+
+    (b, plen, n_gen) = WINDOW_SERVE_SHAPE
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab, size=(b, plen))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cp, cg = VARIANT_F32_CHECK_STEPS
+    check = _variant_serve_check(
+        cfg32, params, prompt[:, :cp], cg, transformer.init_cache(
+            cfg32, b, cp + cg), "window_serve")
+    serve = _variant_serve(cfg, params, prompt, n_gen, "window_serve")
+    emit({"phase": "window_serve", "arch": cfg.name,
+          "compute_dtype": "bfloat16", "batch": b, "prompt": plen,
+          "gen": n_gen, **serve, "f32_check": check})
+    del model, params, tokens
+    torch.cuda.empty_cache()
+    return {"repro_flash_attention": pre["flash_launches"],
+            "repro_decode_attention": serve["decode_launches"]}
+
+
 KERNELS = [
     ("share_gen_batch", "repro_share_gen_batch",
      "src/repro_torch/kernels/csrc/share_gen.cu",
@@ -4415,6 +4953,20 @@ def main(argv=None) -> int:
     moe_rows = {"flash_attention": (flash_rows["moe_prefill"],
                                     flash_rows["grok_prefill"]),
                 "decode_attention": (decode_rows["moe"], decode_rows["grok"])}
+    # and under "encdec", "vlm" and "window" at whisper-large-v3's,
+    # qwen2-vl-2b's and starcoder2-3b's main-path shapes (the first row
+    # of each, the path's other shapes beside it), with their launches
+    variant_rows = {
+        "encdec": {"flash_attention": (flash_rows["whisper_enc"], {
+            "self": flash_rows["whisper_dec"],
+            "cross": flash_rows["whisper_cross"]}),
+            "decode_attention": (decode_rows["whisper_cross"], {
+                "self": decode_rows["whisper_self"]})},
+        "vlm": {"flash_attention": (flash_rows["vlm_prefill"], {}),
+                "decode_attention": (decode_rows["vlm"], {})},
+        "window": {"flash_attention": (flash_rows["sc2_prefill"], {}),
+                   "decode_attention": (decode_rows["sc2"], {
+                       "full_window": decode_rows["sc2_window"]})}}
     rows = phase_kernels()
     verify_rows = phase_verify_kernel()
     # the kernels line reports verify_shares at the audit shape, the
@@ -4468,6 +5020,9 @@ def main(argv=None) -> int:
     # kernels, as the train phases do
     for key, count in phase_hybrid_train().items():
         launches[key] = launches.get(key, 0) + count
+    variant_launches = {"encdec": phase_encdec(), "vlm": phase_vlm(),
+                        "window": phase_window()}
+    phase_ring()
     rows.update(attn_rows)
 
     kernels = []
@@ -4496,6 +5051,19 @@ def main(argv=None) -> int:
                             "grok": {"shape": grok["shape"],
                                      "graph_ms": grok.get("graph_ms"),
                                      **{k: grok.get(k) for k in ROW_KEYS}}}
+        for path, by_kernel in variant_rows.items():
+            if name not in by_kernel:
+                continue
+            count = variant_launches[path][key]
+            require(count > 0, f"{name} was not launched on the {path} path")
+            first, others = by_kernel[name]
+            entry[path] = {"shape": first["shape"], "launches": count,
+                           "graph_ms": first.get("graph_ms"),
+                           **{k: first.get(k) for k in ROW_KEYS},
+                           **{other: {"shape": row["shape"],
+                                      "graph_ms": row.get("graph_ms"),
+                                      **{k: row.get(k) for k in ROW_KEYS}}
+                              for other, row in others.items()}}
         kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})

@@ -12,10 +12,14 @@ does; ``make_prefill`` is the separate full-forward entry), then
 card a dense model's step runs the decode-attention kernel in every
 layer; an SSM model's step (``--arch falcon-mamba-7b``) runs no
 hand-written kernel, as the reference's ``ssm_block_step`` is plain
-jnp.  The index stays a host int and the tokens stay on the device
-until the end, so a step does not wait for the card.  ``--tp`` above 1
-(sharded serving) and the embeddings frontend are later slices and
-raise.
+jnp.  As the reference's CLI, the embeddings frontend (``--arch
+qwen2-vl-2b``) feeds every step ``embeds`` of zeros ``[B, 1, d]``
+(bf16), and the enc-dec family (``--arch whisper-large-v3``) serves
+from the cross K/V of a zero encoder output (``init_cache`` without
+``enc_out``); ``generate`` also takes real embeds or encoder states.
+The index stays a host int and the tokens stay on the device until the
+end, so a step does not wait for the card.  ``--tp`` above 1 (sharded
+serving) is a later slice and raises.
 """
 
 from __future__ import annotations
@@ -50,13 +54,18 @@ def parse_args(argv=None):
 
 
 def generate(cfg, params, prompt, gen: int, *, device="cuda",
-             observe=None) -> dict:
+             observe=None, embeds=None, enc_out=None) -> dict:
     """The reference's serve loop: one decode step per prompt token
     (filling the cache), then ``gen`` greedy steps, timed.
 
     ``params``: the model's ``params()`` tree; ``prompt``: ``[B, P]``
     token ids (numpy or a tensor).  ``observe`` is handed to the step
-    (``ServeStep.observe``).  Returns ``tokens``
+    (``ServeStep.observe``).  Under the embeddings frontend step ``t`` is
+    fed ``embeds[:, t:t + 1]`` (``embeds``: ``[B, P + gen, d]`` on the
+    step's device), or zeros ``[B, 1, d]`` (bf16) without it, as the
+    reference's CLI; the prompt's tokens are not read then.  An enc-dec
+    model's cache takes the cross K/V of ``enc_out`` ``[B, enc_seq, d]``
+    (zeros without it).  Returns ``tokens``
     (numpy int32 ``[B, gen]``: the tokens of the timed steps, as the
     reference collects them), ``prompt_s`` and ``gen_s`` (host seconds up
     to a synchronize) and the ``cache``.
@@ -65,10 +74,21 @@ def generate(cfg, params, prompt, gen: int, *, device="cuda",
     kv_len = plen + gen
     step = make_serve_step(cfg, kv_len, b, device=device)
     step.observe = observe
+    extra = {"enc_out": enc_out} if cfg.enc_dec else {}
     cache = get_api(cfg).init_cache(params, cfg, b, kv_len,
-                                    device=step.device)
+                                    device=step.device, **extra)
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
                                device=step.device)
+    if cfg.frontend == "embeddings":
+        zeros = torch.zeros((b, 1, cfg.d_model), dtype=torch.bfloat16,
+                            device=step.device)
+
+        def inputs(tok, t):
+            return {"embeds": zeros if embeds is None
+                    else embeds[:, t:t + 1], "index": t}
+    else:
+        def inputs(tok, t):
+            return {"tokens": tok, "index": t}
 
     def sync():
         if step.device.type == "cuda":
@@ -78,13 +98,13 @@ def generate(cfg, params, prompt, gen: int, *, device="cuda",
     t0 = time.perf_counter()
     tok = prompt_t[:, :1]
     for t in range(plen):
-        nxt, cache = step(params, cache, {"tokens": tok, "index": t})
+        nxt, cache = step(params, cache, inputs(tok, t))
         tok = prompt_t[:, t + 1:t + 2] if t + 1 < plen else nxt[:, None]
     sync()
     t1 = time.perf_counter()
     out = []
     for t in range(plen, kv_len):
-        nxt, cache = step(params, cache, {"tokens": tok, "index": t})
+        nxt, cache = step(params, cache, inputs(tok, t))
         tok = nxt[:, None]
         out.append(nxt)
     toks = torch.stack(out, 1) if out else torch.empty(

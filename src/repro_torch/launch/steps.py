@@ -64,6 +64,23 @@ from .fsdp import gather_tree, make_fsdp_transforms, party_dims, shard_tree
 from .sharding import needs_fsdp
 
 PROTOCOLS = ("two_phase", "p2p", "plain")
+
+TRAIN_LATER = (
+    "training {name} is not ported yet: the training of the enc-dec "
+    "family, the embeddings frontend and the layernorm / gelu / "
+    "sliding-window dense block (whisper-large-v3, qwen2-vl-2b, "
+    "starcoder2-3b), which serve, belongs to ROADMAP queue 1, item 15 of "
+    "the PyTorch port")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for the architectures that serve but
+    do not train yet: enc-dec, the embeddings frontend, and a dense or
+    MoE block with layernorm, an ungated gelu MLP or a window."""
+    block = (cfg.family in ("ssm", "hybrid")
+             or (cfg.norm, cfg.act, cfg.window) == ("rmsnorm", "silu", 0))
+    if cfg.enc_dec or cfg.frontend == "embeddings" or not block:
+        raise NotImplementedError(TRAIN_LATER.format(name=cfg.name))
 AGG_MODES = ("psum", "reduce_scatter")
 
 
@@ -132,6 +149,9 @@ class TrainStep:
     MPC-FSDP the model holds this party's shards (``shard_model``) and
     the moments are the shards'.
 
+    whisper-large-v3, qwen2-vl-2b and starcoder2-3b serve but do not
+    train yet (``check_trainable``: ROADMAP queue 1, item 15).
+
     ``observe``: if set, ``observe(grads, aggregated)`` is called with
     the party's gradient tree (or pseudo-gradient; densified under
     top-k; under MPC-FSDP the split leaves' are already aggregated) and
@@ -150,6 +170,7 @@ class TrainStep:
             fsdp = needs_fsdp(cfg)
         if fsdp and cfg.enc_dec:
             raise NotImplementedError("MPC-FSDP not wired for enc-dec archs")
+        check_trainable(cfg)
         if fsdp and local_steps > 1:
             raise NotImplementedError("local_steps requires replicated "
                                       "params")
@@ -351,24 +372,31 @@ def make_train_step(cfg: ArchConfig, **kw) -> TrainStep:
 # prefill / serve_step factories
 # ---------------------------------------------------------------------------
 
+#: the batch entries prefill moves to its device: token ids, the
+#: embeddings frontend's ``embeds`` ``[B, S, d]``, the enc-dec family's
+#: post-conv ``frames`` ``[B, enc_seq, d]``
+PREFILL_INPUTS = ("tokens", "embeds", "frames")
+
+
 def make_prefill(cfg: ArchConfig, attn_impl: str = "auto", device="cuda"):
     """``prefill(params, batch) -> logits [B, V]`` (float32, last
-    position).  ``params``: the model's ``params()`` tree;
-    ``batch["tokens"]`` ``[B, S]`` (numpy or a tensor) is moved to the
-    step's device.  ``attn_impl="auto"`` runs the flash kernel (dense
-    and MoE families), the selective-scan kernel (SSM family), or the
-    RG-LRU scan and flash kernels (hybrid family) on the card;
-    ``"dense"`` their plain paths."""
+    position).  ``params``: the model's ``params()`` tree; the batch's
+    ``tokens`` ``[B, S]``, ``embeds`` and ``frames`` (numpy or tensors;
+    those the model reads) are moved to the step's device.
+    ``attn_impl="auto"`` runs the flash kernel (dense, MoE and enc-dec
+    families), the selective-scan kernel (SSM family), or the RG-LRU
+    scan and flash kernels (hybrid family) on the card; ``"dense"``
+    their plain paths."""
     api = get_api(cfg)
     device = dispatch.resolve_device(device)
 
     def prefill_fn(params, batch):
-        tokens = torch.as_tensor(np.asarray(batch["tokens"])) \
-            if not isinstance(batch["tokens"], torch.Tensor) \
-            else batch["tokens"]
+        moved = {key: torch.as_tensor(np.asarray(batch[key]))
+                 .to(device) if not isinstance(batch[key], torch.Tensor)
+                 else batch[key].to(device)
+                 for key in PREFILL_INPUTS if key in batch}
         with torch.no_grad():
-            return api.prefill(params, {"tokens": tokens.to(device)}, cfg,
-                               impl=attn_impl)
+            return api.prefill(params, moved, cfg, impl=attn_impl)
 
     return prefill_fn
 
@@ -378,9 +406,11 @@ class ServeStep:
     greedy decode step (``argmax`` of the logits, the first index on a
     tie, as ``jnp.argmax``).  ``params``: the model's ``params()`` tree;
     ``cache``: ``init_cache(params, cfg, batch, kv_len)`` of the model
-    API (a KV cache, or SSM states), updated in place; ``dbatch``:
-    ``tokens`` ``[B, 1]`` on the
-    step's device, ``index`` a host int.
+    API (a KV cache, or SSM states; an enc-dec model's also holds the
+    encoder's cross K/V), updated in place; ``dbatch``: ``tokens``
+    ``[B, 1]`` (the embeddings frontend: ``embeds`` ``[B, 1, d]``) on the
+    step's device, ``index`` a host int, handed to the model's
+    ``decode_step`` as they are.
 
     ``observe``: if set, ``observe(dbatch, logits)`` is called with each
     step's float32 logits before the argmax — for checks of the step.

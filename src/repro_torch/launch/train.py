@@ -25,7 +25,9 @@ protocol, scheme, committee, seed, compress-topk and chunk-elems from
 it, as the reference does; the model and loop flags stay on the command
 line.  ``--tp`` above 1 and ``--production-mesh`` raise
 ``NotImplementedError``: the port has no model axis (ROADMAP queue 1,
-item 11), and the pod meshes are TPU meshes.
+item 11), and the pod meshes are TPU meshes.  whisper-large-v3,
+qwen2-vl-2b and starcoder2-3b serve but do not train yet: the step
+refuses them (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations

@@ -38,12 +38,31 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (out * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """Float32 statistics: the mean, the population variance (``jnp.var``)
+    and ``rsqrt``, as the reference's."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
 def norm_init(cfg: ArchConfig, dtype, device=None):
-    return rmsnorm_init(cfg.d_model, dtype, device)
+    return (rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init)(
+        cfg.d_model, dtype, device)
 
 
 def apply_norm(cfg: ArchConfig, params, x):
-    return rmsnorm(params, x, cfg.norm_eps)
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(params, x, cfg.norm_eps)
+    return layernorm(params, x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +74,9 @@ def rope_freqs(d_head: int, theta: float):
 
 
 def apply_rope(x, positions, theta: float = 1e4):
-    """x: ``[B, H, S, D]``; positions: ``[B, S]``.  (The reference's
-    M-RoPE sections belong to qwen2-vl's embeddings frontend, a later
-    slice; for ``[B, S]`` positions M-RoPE is this rotation.)"""
+    """x: ``[B, H, S, D]``; positions: ``[B, S]``.  One position stream:
+    the reference's ``_project_qkv`` never passes M-RoPE's sections, so
+    qwen2-vl's ``rope="mrope"`` is this rotation in both packages."""
     d = x.shape[-1]
     freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
                             device=x.device)                     # [D/2]
@@ -69,8 +88,20 @@ def apply_rope(x, positions, theta: float = 1e4):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int):
+    """Whisper's encoder positions ``[seq, d]`` float32, computed in numpy
+    as the reference's, so both packages hold the same bits."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out)
+
+
 # ---------------------------------------------------------------------------
-# Dense gated MLP (SiLU, or GeGLU)
+# Dense MLP: gated (SiLU, or GeGLU), or biased and ungated (gelu)
 # ---------------------------------------------------------------------------
 
 def gelu(x):
@@ -84,20 +115,31 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype, device=None,
     d, f = cfg.d_model, d_ff or cfg.d_ff
     scale_in = 1.0 / np.sqrt(d)
     scale_out = 1.0 / np.sqrt(f)
+    if cfg.act in ("silu", "geglu"):
+        return {
+            "w_gate": _normal(gen, (d, f), dtype, device, scale_in),
+            "w_up": _normal(gen, (d, f), dtype, device, scale_in),
+            "w_down": _normal(gen, (f, d), dtype, device, scale_out),
+        }
     return {
-        "w_gate": _normal(gen, (d, f), dtype, device, scale_in),
         "w_up": _normal(gen, (d, f), dtype, device, scale_in),
+        "b_up": torch.zeros((f,), dtype=dtype, device=device),
         "w_down": _normal(gen, (f, d), dtype, device, scale_out),
+        "b_down": torch.zeros((d,), dtype=dtype, device=device),
     }
 
 
 def mlp_apply(params, x, cfg: ArchConfig):
     cd = x.dtype
-    gate = x @ params["w_gate"].to(cd)
-    up = x @ params["w_up"].to(cd)
-    gate = shard(gate, "batch", "seq", "ff")
-    act = F.silu(gate) if cfg.act == "silu" else gelu(gate)
-    return (act * up) @ params["w_down"].to(cd)
+    if cfg.act in ("silu", "geglu"):
+        gate = x @ params["w_gate"].to(cd)
+        up = x @ params["w_up"].to(cd)
+        gate = shard(gate, "batch", "seq", "ff")
+        act = F.silu(gate) if cfg.act == "silu" else gelu(gate)
+        return (act * up) @ params["w_down"].to(cd)
+    h = x @ params["w_up"].to(cd) + params["b_up"].to(cd)
+    h = shard(h, "batch", "seq", "ff")
+    return gelu(h) @ params["w_down"].to(cd) + params["b_down"].to(cd)
 
 
 # ---------------------------------------------------------------------------

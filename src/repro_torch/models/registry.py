@@ -1,10 +1,10 @@
 """Model API registry: family -> (init, loss, prefill, cache, decode).
 
-Counterpart of ``repro/models/registry.py`` for the dense, MoE, SSM
-and hybrid families: the transformer API's ``init``, ``loss_fn``,
-``prefill``, ``init_cache`` and ``decode_step`` (the reference routes
-``moe``, ``ssm`` and ``hybrid`` through the same API).  The other
-families raise ``NotImplementedError`` (``transformer.check_family``).
+Counterpart of ``repro/models/registry.py``: the transformer API
+(``init``, ``loss_fn``, ``prefill``, ``init_cache``, ``decode_step``)
+for the decoder-only families (dense, MoE, SSM, hybrid; the reference
+routes them all through it) and the enc-dec API (``models/encdec.py``),
+chosen by ``cfg.enc_dec`` as the reference chooses.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from . import transformer
+from . import encdec, transformer
 from .common import ArchConfig
 
 
@@ -39,7 +39,14 @@ TRANSFORMER_API = ModelApi(
     decode_step=transformer.decode_step,
 )
 
+ENCDEC_API = ModelApi(
+    init=encdec.init,
+    loss_fn=encdec.loss_fn,
+    prefill=encdec.prefill,
+    init_cache=encdec.init_cache,
+    decode_step=encdec.decode_step,
+)
+
 
 def get_api(cfg: ArchConfig) -> ModelApi:
-    transformer.check_family(cfg)
-    return TRANSFORMER_API
+    return ENCDEC_API if cfg.enc_dec else TRANSFORMER_API

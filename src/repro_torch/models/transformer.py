@@ -2,7 +2,10 @@
 ``nn.Module``.
 
 Counterpart of ``repro/models/transformer.py`` for the dense family
-(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b), the MoE family
+(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b; starcoder2-3b: layernorm, a
+biased gelu MLP and a sliding window; qwen2-vl-2b: the embeddings
+frontend, whose batches carry ``embeds`` ``[B, S, d]`` in place of
+tokens), the MoE family
 (qwen3-moe-235b-a22b, grok-1-314b: attention and a routed expert FFN
 in every layer, ``models/moe.py``), the SSM family (falcon-mamba-7b,
 ``models/ssm.py``) and the hybrid family (recurrentgemma-9b: (rec, rec,
@@ -50,9 +53,9 @@ The loop over layers takes each stacked leaf apart once with ``unbind``,
 so backward writes each leaf's gradient as one ``[L, ...]`` stack.
 ``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` while
 autograd records: the backward recomputes the layer's forward with the
-same operations, so no number changes.  The enc-dec family, and a
-dense or MoE block with a sliding window, layernorm or a plain gelu MLP,
-are later slices and raise ``NotImplementedError``.
+same operations, so no number changes.  The enc-dec family
+(whisper-large-v3) is ``models/encdec.py``'s, built from this module's
+attention block.
 """
 
 from __future__ import annotations
@@ -76,42 +79,12 @@ from .layers import (apply_norm, apply_rope, chunked_softmax_xent, embed,
                      embedding_init, mlp_apply, mlp_init, norm_init)
 
 
-#: families of the reference that later slices of the port carry over
-LATER_FAMILIES = {
-    "enc_dec": "the enc-dec family (ROADMAP queue 1, item 6)",
-}
-
-
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense, a MoE, an
-    SSM or a hybrid LM."""
+    """Raise ``ValueError`` for an enc-dec config, which
+    ``models/encdec.py`` runs (``registry.get_api`` picks it)."""
     if cfg.enc_dec:
-        key = "enc_dec"
-    elif cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} ({cfg.name}) is not ported yet: "
-            "the embeddings frontend belongs to ROADMAP queue 1, item 6 of "
-            "the PyTorch port, whose train and serve steps take tokens")
-    elif cfg.family == "hybrid":
-        if (cfg.norm, cfg.act) == ("rmsnorm", "geglu"):
-            return  # recurrentgemma-9b
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}, act={cfg.act!r} ({cfg.name}) is not ported "
-            "yet: it belongs to ROADMAP queue 1, item 6 of the PyTorch "
-            "port, whose hybrid block is rmsnorm and GeGLU")
-    elif (cfg.norm, cfg.act, cfg.window) != ("rmsnorm", "silu", 0):
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}, act={cfg.act!r}, window={cfg.window} "
-            f"({cfg.name}) is not ported yet: it belongs to ROADMAP queue "
-            "1, item 6 of the PyTorch port, whose dense block is rmsnorm, "
-            "a SiLU-gated MLP or SiLU experts and full causal attention "
-            "(qwen1.5-0.5b, tinyllama-1.1b, llama3.2-1b, "
-            "qwen3-moe-235b-a22b, grok-1-314b)")
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name} is not ported yet: it belongs to "
-        f"{LATER_FAMILIES[key]} of the PyTorch port")
+        raise ValueError(f"{cfg.name} is an enc-dec config: "
+                         "models/encdec.py runs it, not the decoder-only LM")
 
 
 # ---------------------------------------------------------------------------
@@ -251,24 +224,31 @@ def _register(module: nn.Module, tree) -> None:
             module.register_parameter(str(key), nn.Parameter(value))
 
 
-class Transformer(nn.Module):
+class ParamTree(nn.Module):
+    """A model whose parameters sit under the reference's tree keys."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        _register(self, tree)
+
+    def params(self) -> dict:
+        """The parameters as the reference's nested tree (a list keyed by
+        int)."""
+        names = [tuple(int(k) if k.isdigit() else k
+                       for k in name.split("."))
+                 for name, _ in self.named_parameters()]
+        return unflatten(names, [p for _, p in self.named_parameters()])
+
+
+class Transformer(ParamTree):
     """An LM whose parameters sit under the reference's tree keys
     (``embed.table``, ``layers.b0_attn.attn.wq`` [L, d, h·dh],
     ``tail.0.rec.w_x``, ...)."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        super().__init__()
         check_family(cfg)
-        self.cfg = cfg
-        _register(self, tree)
-
-    def params(self) -> dict:
-        """The parameters as the reference's nested tree (the tail a list,
-        keyed by int)."""
-        names = [tuple(int(k) if k.isdigit() else k
-                       for k in name.split("."))
-                 for name, _ in self.named_parameters()]
-        return unflatten(names, [p for _, p in self.named_parameters()])
+        super().__init__(cfg, tree)
 
 
 def _model_device(device) -> torch.device:
@@ -278,38 +258,51 @@ def _model_device(device) -> torch.device:
         device)
 
 
+def generator(device: torch.device, seed: int):
+    """The draws of ``init`` on ``device`` (none on the meta device, which
+    holds shapes only)."""
+    return (None if device.type == "meta"
+            else torch.Generator(device=device).manual_seed(int(seed)))
+
+
+def stacked_layers(n: int, draw_layer, device: torch.device) -> dict:
+    """``n`` layers of ``draw_layer()`` (a tree), each leaf stacked on a
+    leading ``L`` dim.  Each stacked leaf is allocated once and filled
+    layer by layer, in the order the layers are drawn: the layers never
+    exist twice."""
+    paths, stacked = None, None
+    for layer in range(n):
+        tree = flatten_with_path(draw_layer())
+        if stacked is None:
+            paths = [p for p, _ in tree]
+            stacked = [torch.empty((n,) + tuple(leaf.shape),
+                                   dtype=leaf.dtype, device=device)
+                       for _, leaf in tree]
+        if device.type != "meta":
+            for dst, (_, leaf) in zip(stacked, tree):
+                dst[layer].copy_(leaf)
+        del tree
+    return unflatten(paths, stacked)
+
+
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> Transformer:
     """A ``Transformer`` with weights drawn from ``seed`` on ``device``,
     with the reference's scales (embedding 0.02, projections
     ``1/sqrt(fan_in)``, norm scales 1, biases 0; the SSM block's as the
-    reference's ``ssm_block_init``).
-
-    Each stacked leaf is allocated once and filled layer by layer, in
-    the order the layers are drawn: the layers never exist twice."""
+    reference's ``ssm_block_init``), the layers stacked
+    (``stacked_layers``)."""
     check_family(cfg)
     device = _model_device(device)
     dtype = dtype_of(cfg, "param_dtype")
     group_kinds, n_groups, tail_kinds = stack_plan(cfg)
-    # a model on the meta device (shapes only) draws nothing
-    gen = (None if device.type == "meta"
-           else torch.Generator(device=device).manual_seed(int(seed)))
-    paths, stacked = None, None
-    for layer in range(n_groups):
-        group = flatten_with_path(
-            {f"b{i}_{kind}": block_init(gen, cfg, dtype, kind, device)
-             for i, kind in enumerate(group_kinds)})
-        if stacked is None:
-            paths = [p for p, _ in group]
-            stacked = [torch.empty((n_groups,) + tuple(leaf.shape),
-                                   dtype=leaf.dtype, device=device)
-                       for _, leaf in group]
-        if device.type != "meta":
-            for dst, (_, leaf) in zip(stacked, group):
-                dst[layer].copy_(leaf)
-        del group
+    gen = generator(device, seed)
+    layers = stacked_layers(
+        n_groups, lambda: {f"b{i}_{kind}": block_init(gen, cfg, dtype, kind,
+                                                      device)
+                           for i, kind in enumerate(group_kinds)}, device)
     tree: dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype, device),
-        "layers": unflatten(paths, stacked),
+        "layers": layers,
         "final_norm": norm_init(cfg, dtype, device),
     }
     if tail_kinds:
@@ -329,7 +322,14 @@ def from_reference(cfg: ArchConfig, arrays: dict[str, np.ndarray],
     ``arrays`` maps each leaf path as the reference prints it
     (``"['layers']/['b0_attn']/['attn']/['wq']"``) to its numpy array.
     """
-    want = {path_str(p): p for p in _schema_paths(cfg)}
+    return load_tree(Transformer, cfg, arrays, _schema_paths(cfg), device)
+
+
+def load_tree(cls, cfg: ArchConfig, arrays: dict[str, np.ndarray],
+              schema_paths, device) -> ParamTree:
+    """``cls(cfg, tree)`` of ``arrays`` keyed by reference path, which must
+    be the paths of ``schema_paths``."""
+    want = {path_str(p): p for p in schema_paths}
     if set(arrays) != set(want):
         raise ValueError(
             f"leaf paths differ from the {cfg.name} schema: missing "
@@ -339,10 +339,10 @@ def from_reference(cfg: ArchConfig, arrays: dict[str, np.ndarray],
     paths = [want[k] for k in sorted(want)]
     leaves = [torch.as_tensor(np.asarray(arrays[path_str(p)]),
                               device=device).clone() for p in paths]
-    return Transformer(cfg, unflatten(paths, leaves))
+    return cls(cfg, unflatten(paths, leaves))
 
 
-def to_reference(model: Transformer) -> dict[str, np.ndarray]:
+def to_reference(model: ParamTree) -> dict[str, np.ndarray]:
     """The model's parameters as numpy arrays keyed by reference path."""
     return {path_str(p): leaf.detach().cpu().numpy()
             for p, leaf in flatten_with_path(model.params())}
@@ -398,7 +398,10 @@ def forward_hidden(params, batch, cfg: ArchConfig, impl: str = "auto",
                    layer_transform=None):
     check_family(cfg)
     cd = dtype_of(cfg, "compute_dtype")
-    x = embed(params["embed"], batch["tokens"], cd)
+    if cfg.frontend == "embeddings":
+        x = batch["embeds"].to(cd)
+    else:
+        x = embed(params["embed"], batch["tokens"], cd)
     b, s, _ = x.shape
     x = shard(x, "batch", "seq", "embed")
     positions = batch.get("positions")
@@ -416,7 +419,8 @@ def lm_head_weight(params, cfg: ArchConfig):
 
 def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto",
             layer_transform=None):
-    """Mean next-token NLL.  batch: tokens ``[B,S]``, labels ``[B,S]``."""
+    """Mean next-token NLL.  batch: tokens ``[B,S]`` (or embeds
+    ``[B,S,d]``), labels ``[B,S]``."""
     h = forward_hidden(params, batch, cfg, impl=impl,
                        layer_transform=layer_transform)
     w = lm_head_weight(params, cfg)
@@ -426,7 +430,8 @@ def loss_fn(params, batch, cfg: ArchConfig, impl: str = "auto",
 
 def prefill(params, batch, cfg: ArchConfig, impl: str = "auto"):
     """Last-position logits ``[B, V]`` (float32) of a full forward over
-    ``batch["tokens"]`` ``[B, S]``.  As the reference's, it builds no
+    ``batch["tokens"]`` ``[B, S]`` (the embeddings frontend:
+    ``batch["embeds"]`` ``[B, S, d]``).  As the reference's, it builds no
     cache: serving fills the cache by decode steps."""
     h = forward_hidden(params, batch, cfg, impl=impl)
     w = lm_head_weight(params, cfg)
@@ -481,7 +486,10 @@ def init_cache(cfg: ArchConfig, batch: int, kv_len: int,
 def cache_batch_and_length(cache) -> tuple[int, int | None]:
     """The batch of a cache from ``init_cache``, and the length of its KV
     buffers (``None`` for a model without attention, whose state does
-    not grow: SSM)."""
+    not grow: SSM).  An enc-dec cache (``models/encdec.py``) holds its
+    self-attention ``k``, ``v`` ``[L, B, H, S, Dh]`` at the top level."""
+    if "groups" not in cache:
+        return cache["k"].shape[1], cache["k"].shape[3]
     groups = list(cache["groups"].values()) + list(cache.get("tail", []))
     batch = next(iter(groups[0].values())).shape[1]
     kv = next((g["k"] for g in groups if "k" in g), None)
@@ -541,8 +549,9 @@ def _decode_block(p, x, cache_kv, cfg: ArchConfig, index: int, positions,
 
 
 def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
-    """One decode step.  batch: ``tokens`` ``[B, 1]``, ``index`` (a host
-    int: the current absolute position).
+    """One decode step.  batch: ``tokens`` ``[B, 1]`` (the embeddings
+    frontend: ``embeds`` ``[B, 1, d]``), ``index`` (a host int: the
+    current absolute position).
 
     Returns (logits ``[B, V]`` float32, the cache, updated in place).
     ``impl``: ``"auto"`` runs the decode-attention wrapper (the CUDA
@@ -555,7 +564,10 @@ def decode_step(params, cache, batch, cfg: ArchConfig, impl: str = "auto"):
         raise ValueError(f"unknown decode impl {impl!r}: auto or dense")
     cd = dtype_of(cfg, "compute_dtype")
     index = int(batch["index"])
-    x = embed(params["embed"], batch["tokens"][:, 0], cd)
+    if cfg.frontend == "embeddings":
+        x = batch["embeds"][:, 0, :].to(cd)
+    else:
+        x = embed(params["embed"], batch["tokens"][:, 0], cd)
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int64,
                            device=x.device)
     group_kinds, n_groups, tail_kinds = stack_plan(cfg)

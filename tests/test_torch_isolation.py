@@ -168,30 +168,48 @@ def test_spmd_transport_elects_on_its_own_device(monkeypatch):
     assert committee.shape == (3,)
 
 
-#: train-path knobs of slices 11 and 12, which run now (``_train_knob``
-#: returns a check of what each builds)
-PORTED_KNOBS = ("fsdp", "fsdp_none", "compress_topk", "ckpt_dir", "moe")
+#: model and train-path knobs of slices 11 to 13, which run now
+#: (``_train_knob`` returns a check of what each builds)
+PORTED_KNOBS = ("fsdp", "fsdp_none", "compress_topk", "ckpt_dir", "moe",
+                "enc_dec", "starcoder2", "layernorm", "window", "prefill")
 
 
-def _same_tree_as_reference(cfg, model) -> bool:
+def _same_tree_as_reference(cfg, model, holds="['moe']/['router']") -> bool:
     """``model``'s leaf paths and shapes are those the reference's
-    ``init`` builds for ``cfg`` (shapes only, through ``eval_shape``)."""
+    ``init`` (its registry's, by ``cfg.enc_dec``) builds for ``cfg``
+    (shapes only, through ``eval_shape``), one of them holding
+    ``holds``."""
     import dataclasses
 
     import jax
 
     from repro.models import common as j_common
-    from repro.models import transformer as j_transformer
+    from repro.models import registry as j_registry
     from repro_torch.core.tree import flatten_with_path, path_str
     j_cfg = j_common.ArchConfig(**dataclasses.asdict(cfg))
     abstract = jax.eval_shape(
-        lambda: j_transformer.init(jax.random.PRNGKey(0), j_cfg))
+        lambda: j_registry.get_api(j_cfg).init(jax.random.PRNGKey(0), j_cfg))
     want = {"/".join(str(p) for p in path): tuple(leaf.shape)
             for path, leaf in jax.tree_util.tree_flatten_with_path(
                 abstract)[0]}
     got = {path_str(p): tuple(leaf.shape)
            for p, leaf in flatten_with_path(model.params())}
-    return got == want and any("['moe']/['router']" in p for p in got)
+    return got == want and any(holds in p for p in got)
+
+
+def _trainer_refuses_the_serving_only_archs():
+    """The trainer refuses whisper-large-v3, qwen2-vl-2b and starcoder2-3b
+    (they serve; their training is ROADMAP queue 1, item 15): each
+    through ``make_train_step``, then starcoder2-3b through the CLI,
+    whose refusal this raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    for arch in ("whisper-large-v3", "qwen2-vl-2b", "starcoder2-3b"):
+        with pytest.raises(NotImplementedError,
+                           match=r"not ported yet.*ROADMAP queue 1, item 15"):
+            steps.make_train_step(get_config(arch, smoke=True), device="cpu")
+    train.run(train.parse_args(["--arch", "starcoder2-3b", "--smoke",
+                                "--device", "cpu"]))
 
 
 def _train_knob(name, tmp_path=None):
@@ -201,7 +219,7 @@ def _train_knob(name, tmp_path=None):
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps, train
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, encdec, transformer
     smoke = get_config("qwen1.5-0.5b", smoke=True)
 
     def cli(*argv):
@@ -229,14 +247,33 @@ def _train_knob(name, tmp_path=None):
         "moe": ported(lambda: transformer.init(dataclasses.replace(
             smoke, n_experts=4, top_k=2, d_ff_expert=32), device="cpu"),
             lambda model: _same_tree_as_reference(model.cfg, model)),
-        "enc_dec": lambda: get_config("whisper-large-v3"),
-        "starcoder2": lambda: get_config("starcoder2-3b"),
-        "layernorm": lambda: transformer.init(dataclasses.replace(
+        "enc_dec": ported(lambda: encdec.init(get_config(
+            "whisper-large-v3"), device="meta"),
+            lambda model: _same_tree_as_reference(
+                model.cfg, model, "['dec_layers']/['cross']/['wk']")),
+        "starcoder2": ported(lambda: transformer.init(get_config(
+            "starcoder2-3b"), device="meta"),
+            lambda model: _same_tree_as_reference(
+                model.cfg, model, "['mlp']/['b_up']")),
+        "layernorm": ported(lambda: transformer.init(dataclasses.replace(
             smoke, norm="layernorm"), device="cpu"),
-        "window": lambda: transformer.loss_fn(
-            {}, {}, dataclasses.replace(smoke, window=8)),
-        "prefill": lambda: transformer.prefill({}, {}, dataclasses.replace(
-            smoke, frontend="embeddings")),
+            lambda model: _same_tree_as_reference(
+                model.cfg, model, "['ln1']/['bias']")),
+        # the window's cache is a ring of min(kv_len, window) slots
+        "window": ported(lambda: transformer.init(dataclasses.replace(
+            smoke, window=8), device="cpu"),
+            lambda model: _same_tree_as_reference(
+                model.cfg, model, "['attn']/['wq']")
+            and transformer.cache_batch_and_length(transformer.init_cache(
+                model.cfg, 2, 32, device="cpu")) == (2, 8)),
+        # the embeddings frontend's prefill reads embeds [B, S, d]
+        "prefill": ported(lambda: transformer.init(dataclasses.replace(
+            smoke, frontend="embeddings"), device="cpu"),
+            lambda model: _same_tree_as_reference(
+                model.cfg, model, "['embed']/['table']")
+            and transformer.prefill(model.params(), {"embeds": torch.zeros(
+                (2, 8, smoke.d_model))}, model.cfg).shape == (2, smoke.vocab)),
+        "train_item15": _trainer_refuses_the_serving_only_archs,
         "serve_tp": lambda: serve.run(serve.parse_args(
             ["--smoke", "--tp", "2", "--device", "cpu"])),
         "ckpt_dir": ported(cli("--ckpt-dir", str(tmp_path), "--steps", "1",
@@ -252,11 +289,12 @@ def _train_knob(name, tmp_path=None):
     dict(compress_topk=0.1), dict(compress_topk=0.1, backend="wire"),
     "fsdp", "fsdp_none", "compress_topk", "pallas", "moe", "enc_dec",
     "prefill", "ckpt_dir", "starcoder2", "layernorm", "window", "serve_tp",
+    "train_item15",
 ])
 def test_later_slice_knobs_raise_not_implemented(knob, monkeypatch,
                                                  tmp_path):
     if knob in PORTED_KNOBS:
-        # slices 11 and 12 ported these: each builds what the reference
+        # slices 11 to 13 ported these: each builds what the reference
         # builds
         assert _train_knob(knob, tmp_path)()
         return
@@ -310,7 +348,8 @@ def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
     """The hybrid family serves (recurrentgemma-9b loads at full size);
     its 10.4 B float32 parameters and their Adam moments take the
     MPC-FSDP layout, which the step resolves to (slice 11).  A dense
-    block with a window still raises (starcoder2-3b's)."""
+    block with a window serves (starcoder2-3b's) and the trainer refuses
+    it (ROADMAP queue 1, item 15)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -330,7 +369,8 @@ def test_recurrentgemma_is_ported_and_its_training_needs_mpc_fsdp():
     step = steps.make_train_step(cfg, device="cpu")
     assert step.fsdp and step.dims[("tail", 0, "rec", "w_x")] is not None
     with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
-        transformer.check_family(dataclasses.replace(cfg, family="dense"))
+        steps.make_train_step(dataclasses.replace(cfg, family="dense"),
+                              device="cpu")
 
 
 def test_later_slice_transport_options_raise_not_implemented():
